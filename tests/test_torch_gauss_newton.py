@@ -95,9 +95,66 @@ def test_step_matches_jax():
 def test_unported_solvers_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TGN(TOpt(solver="dense"))
-    with pytest.raises(NotImplementedError, match="refresh"):
-        TGN(TOpt(solver="schur", pcg_precond_refresh=0))
+    with pytest.raises(NotImplementedError, match="A.9"):
+        TGN(TOpt(solver="schur_grid"))
     _, tg, _ = _graphs(40)
     gn = TGN(TOpt(**dict(MAIN, pcg_backend="xla")))
     with pytest.raises(NotImplementedError, match="xla"):
         gn.optimize(tg)
+    # the stateful solve checks the gate before it builds its first state
+    gn = TGN(TOpt(**dict(MAIN, pcg_backend="xla", pcg_precond_refresh=0)))
+    with pytest.raises(NotImplementedError, match="xla"):
+        gn.optimize(tg)
+
+
+@pytest.mark.parametrize("change", [
+    {"exact_odom_jacobians": True, "iterations": 4},
+    {"pcg_precond": "tridiag+coarse", "pcg_coarse_group": 16,
+     "iterations": 4},
+    {"pcg_precond_refresh": 3, "iterations": 5},
+    {"pcg_precond_refresh": 0, "iterations": 3},
+], ids=["exact_odom_jacobians", "tridiag_coarse", "refresh3", "frozen"])
+def test_resident_options_match_jax(change):
+    """The options the scale path brings, on the resident 150-pose path:
+    the JAX package runs them through its fused kernel too."""
+    jg, tg, _ = _graphs(150)
+    cfg = dict(MAIN, **change)
+    jr = JGN(JOpt(**cfg)).optimize(jg)
+    tr = TGN(TOpt(**cfg)).optimize(tg)
+    _compare(jr, tr)
+
+
+# the scale path's config (exact odometry Jacobians, tridiag+coarse, the
+# preconditioner refreshed every 2 iterations, chunks of 10) with damping
+# and a tolerance at which every PCG solve converges
+SCALE = dict(solver="schur", iterations=3, lr=1.0, exact_odom_jacobians=True,
+             lambda_init=10.0, pcg_tol=1e-6, pcg_max_iters=400,
+             pcg_restart_every=40, pcg_precond="tridiag+coarse",
+             pcg_coarse_group=64, pcg_precond_refresh=2, pcg_fused_chunk=10)
+
+
+def test_stateful_band_path_matches_jax_plain_pcg():
+    """Three GN iterations of the stateful band path on a 2100-pose graph:
+    the port through its band solve, the JAX package through its plain
+    PCG loop (f32), chi^2 at rtol 1e-3.  The solves converge here: with
+    the PCG truncated (tol 1e-2, cap 80, lambda 1e-3) the JAX package's own
+    plain and fused paths differ by 10 % in chi^2 at iteration 2 on this
+    graph, so truncated runs cannot be held to each other."""
+    from toyslam_tpu.sim import synthetic as j_syn
+    from toyslam_torch.ops import fused_pcg as t_fp
+    from toyslam_torch.ops.gather_plan import attach_plan
+    from toyslam_torch.sim import synthetic as t_syn
+
+    kw = dict(num_poses=2100, num_landmarks=1500, obs_per_pose=5, seed=4,
+              pose_bucket=64, landmark_bucket=64, edge_bucket=256)
+    jg = j_syn.make_large_problem(**kw)[0]
+    tg = attach_plan(t_syn.make_large_problem(**kw)[0])
+    assert t_fp.fused_mode(TOpt(**SCALE), tg) == "band"
+    jr = JGN(JOpt(**dict(SCALE, pcg_backend="xla"))).optimize(jg)
+    tr = TGN(TOpt(**SCALE)).optimize(tg)
+    je, te = np.asarray(jr.errors), tr.errors.numpy()
+    np.testing.assert_allclose(te, je, rtol=1e-3)
+    assert tr.iterations_run == int(jr.iterations_run) == 3
+    assert te[-1] < 0.5 * te[0]
+    dit = np.abs(tr.pcg_iters.numpy() - np.asarray(jr.pcg_iters))
+    assert dit.max() <= 10          # one chunk of the fused loop

@@ -1,4 +1,6 @@
-"""The fused-PCG chunk wrapper and its hand-written CUDA kernel.
+"""The fused-PCG chunk wrappers and their hand-written CUDA kernels (the
+resident B1; the band B2 on the card only, its CPU side is in
+test_torch_band.py).
 
 This file imports neither JAX nor the JAX package, so the GPU tests run on
 a machine without them:
@@ -166,6 +168,52 @@ def test_kernel_refuses_more_shared_memory_than_the_card_has(cuda):
     with pytest.raises(ValueError, match="shared"):
         fp.fused_pcg_chunk(_to(op, cuda), _to(pre, cuda), rhs.to(cuda), st,
                            atol2, 50, True, 4)
+
+
+def _tiny_band(np_=300, seed=0):
+    """A small SPD band system (K=2 windows per chunk, one past Np, two
+    wide columns), block-Jacobi preconditioned."""
+    from toyslam_torch.ops import band_plan
+
+    rng = np.random.default_rng(seed)
+    win_off = np.array([[0, 128], [128, 256]], np.int32)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32)
+
+    eye = torch.eye(3)[..., None].expand(3, 3, np_)
+    up = torch.zeros(3, 3, np_)
+    up[:, :, :-1] = -0.5 * torch.eye(3)[..., None]
+    op = fp.BandOperator(
+        tiles=f32(rng.normal(0.0, 0.01, (2, 2, 3, 128, 128))),
+        win_off=torch.as_tensor(win_off),
+        cover=torch.as_tensor(
+            band_plan._window_cover(win_off, np_, 128, 3).astype(np.int32)),
+        u=f32(rng.normal(0.0, 0.02, (3, 2, np_))),
+        tdiag=(4.0 * eye).contiguous(), tupper=up,
+        tlower=torch.roll(up.transpose(0, 1), 1, dims=-1).contiguous())
+    pre = fp.FusedPrecond(torch.zeros(0, 3, 3, np_), torch.zeros(0, 3, 3, np_),
+                          (0.25 * eye).contiguous(), None, None)
+    return op, pre, f32(rng.normal(size=(3, np_)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("restart", [True, False])
+def test_band_kernel_matches_plain_version(cuda, restart):
+    op, pre, rhs = _tiny_band()
+    op, pre, rhs = _to(op, cuda), _to(pre, cuda), rhs.to(cuda)
+    st, atol2 = _start(rhs)
+    if not restart:
+        st = fp.band_fused_pcg_chunk_ref(op, pre, rhs, st, atol2, 200, True, 8)
+    before = fp.band_fused_pcg_chunk.launches
+    ker = fp.band_fused_pcg_chunk(op, pre, rhs, st, atol2, 200, restart, 8)
+    torch.cuda.synchronize()
+    assert fp.band_fused_pcg_chunk.launches == before + 1
+    ref = fp.band_fused_pcg_chunk_ref(op, pre, rhs, st, atol2, 200, restart, 8)
+    assert int(ker.it) == int(ref.it) and int(ker.stop) == int(ref.stop)
+    assert float((ker.x - ref.x).abs().max() / ref.x.abs().max()) <= 1e-4
+    assert float((ker.rt - ref.rt).abs().max()) <= \
+        1e-4 * float(rhs.abs().max())
 
 
 @pytest.mark.cuda

@@ -129,13 +129,31 @@ def test_landmark_residuals(moved):
 
 
 def test_exact_odom_jacobians_not_ported(graphs):
+    """Exact odometry Jacobians run (held against the reference in
+    test_torch_coarse.py); what stays unported is their use with loop
+    closures, which the reference sends to its plain PCG loop."""
+    import dataclasses
+
+    from toyslam_torch.config import OptimizerConfig
+    from toyslam_torch.ops import fused_pcg as t_fp
+    from toyslam_torch.ops.gather_plan import attach_plan as t_attach
+
     _, tg = graphs
     p = tg.odom
+    ev = t_res.eval_odom_edges(tg.poses, p.i, p.j, p.meas, p.info, p.mask,
+                               1.5, exact=True)
+    assert torch.isfinite(ev.JA).all() and torch.isfinite(ev.JB).all()
+    sys = t_schur.assemble_blocks(tg, 1.5, exact_odom_jacobians=True)
+    assert torch.isfinite(sys.hpp_off).all()
+    k = int(torch.nonzero(p.mask == 0)[0])
+    i, j, mask = p.i.clone(), p.j.clone(), p.mask.clone()
+    i[k], j[k], mask[k] = 10, 120, 1.0           # a loop closure
+    closed = t_attach(dataclasses.replace(
+        tg, odom=dataclasses.replace(p, i=i, j=j, mask=mask), plan=None))
+    cfg = OptimizerConfig(solver="schur", exact_odom_jacobians=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_res.eval_odom_edges(tg.poses, p.i, p.j, p.meas, p.info, p.mask,
-                              1.5, exact=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_schur.assemble_blocks(tg, 1.5, exact_odom_jacobians=True)
+        t_fp.fused_mode(cfg, closed)
+    assert t_fp.fused_mode(cfg, tg) == "resident"
 
 
 def test_edge_blocks(moved):

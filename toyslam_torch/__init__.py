@@ -1,12 +1,15 @@
 """toyslam_torch — the 2D LiDAR SLAM system of ``toyslam_tpu`` in PyTorch,
-with its PCG hot loop as a hand-written CUDA kernel for Hopper GPUs.
+with its PCG hot loop as hand-written CUDA kernels for Hopper GPUs.
 
 The main path: the seeded host simulation and factor-graph build
 (``sim.frontend``), then damped Gauss-Newton (``optimizer.GaussNewton``)
 whose every iteration assembles the block-sparse normal equations
 (``ops.schur``), eliminates the landmarks and solves the reduced pose system
 with the fused PCG kernel (``ops.fused_pcg``, ``csrc/fused_pcg_chunk.cu``).
-On CPU tensors the kernel's plain PyTorch version runs instead.
+The scale path: large synthetic graphs (``sim.synthetic``), whose landmark
+fill is laid out as a banded tile stack (``ops.band_plan``) and streamed
+by the band kernel (``csrc/band_fused_pcg_chunk.cu``).  On CPU tensors each
+kernel's plain PyTorch version runs instead.
 
 This package imports neither JAX nor ``toyslam_tpu``.
 """

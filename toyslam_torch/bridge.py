@@ -17,6 +17,7 @@ import torch
 
 from toyslam_torch.models.graph import FactorGraph2D, graph_from_numpy
 from toyslam_torch.ops import gather_plan as gp
+from toyslam_torch.ops.band_plan import BandAux, band_aux_from_arrays
 
 
 def _np(a) -> np.ndarray:
@@ -32,21 +33,34 @@ def _table(t, device) -> gp.VertexTable:
     )
 
 
+def _band(band, n: int, device) -> BandAux:
+    arrays = {f: _np(getattr(band, f)) for f in (
+        "scatter_base", "band_mask", "win_off", "wide_idx", "wide_mask",
+        "src_edges", "elem_ids", "wide_edges")}
+    static = {f: int(getattr(band, f)) for f in (
+        "chunk_b", "k_windows", "w_row", "n_chunks", "n_wide", "dp", "dl")}
+    return band_aux_from_arrays(device, n=n, **arrays, **static)
+
+
 def plan_from_arrays(plan, device="cpu") -> gp.GatherPlan:
-    """The gather tables and the loop-closure aux of ``plan``; any band
-    layout of the source is not carried (the band kernel is not ported)."""
+    """The gather tables, the loop-closure aux and the band layout of
+    ``plan`` (the layout's kernel cover table is derived here)."""
     fused = getattr(plan, "fused", None)
     if fused is not None:
         fused = gp.FusedAux(*(
             torch.as_tensor(_np(a).astype(np.int64), device=device)
             for a in (fused.closure_e, fused.closure_i, fused.closure_j)
         ))
+    band = getattr(plan, "band", None)
+    if band is not None:
+        band = _band(band, plan.lm_by_pose.idx.shape[0], device)
     return gp.GatherPlan(
         lm_by_pose=_table(plan.lm_by_pose, device),
         lm_by_lm=_table(plan.lm_by_lm, device),
         odom_by_i=_table(plan.odom_by_i, device),
         odom_by_j=_table(plan.odom_by_j, device),
         fused=fused,
+        band=band,
     )
 
 

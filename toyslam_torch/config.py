@@ -80,10 +80,11 @@ class OptimizerConfig:
 
     The semantics of every field are those of
     ``toyslam_tpu.config.OptimizerConfig``.  What this package runs today:
-    ``solver="schur"`` with ``pcg_precond`` "jacobi" or "tridiag",
-    ``pcg_precond_refresh=1`` and ``exact_odom_jacobians=False``, through
-    the resident fused-PCG kernel.  The other values validate here and
-    raise ``NotImplementedError`` where the solver is built or run.
+    ``solver="schur"`` with ``pcg_precond`` "jacobi" or "tridiag", with or
+    without "+coarse", any ``pcg_precond_refresh`` and either
+    ``exact_odom_jacobians``, through the resident or the band fused-PCG
+    kernel.  The other values validate here and raise
+    ``NotImplementedError`` where the solver is built or run.
     """
 
     iterations: int = 10

@@ -8,19 +8,31 @@ complement is re-expressed exactly as
                      V = Hpl L^{-T} with Hll = L L^T      (landmark fill-in)
                          [+ chol(W) columns for loop-closure odometry]
 
-and CG runs on it component-major ``[dp, Np]``.  One launch of the kernel
-(``csrc/fused_pcg_chunk.cu``, wrapped by :func:`fused_pcg_chunk`) runs
-``chunk_iters`` iterations and ends with the true residual ``rhs - S x``;
-the host loop in :func:`fused_pcg` relaunches until that residual meets the
-tolerance, the sticky breakdown stop is set, or ``ceil(max_iters / chunk)``
-launches ran.  It reads one flag per chunk to the host.
+and CG runs on it component-major ``[dp, Np]``.  Two kernels run one chunk
+of it each: ``chunk_iters`` iterations, ending with the true residual
+``rhs - S x``.  The host loop (:func:`fused_pcg`, :func:`band_fused_pcg`)
+relaunches until that residual meets the tolerance, the sticky breakdown
+stop is set, or ``ceil(max_iters / chunk)`` launches ran; it reads one flag
+per chunk to the host.
 
-The CPU path runs :func:`fused_pcg_chunk_ref`, the same chunk in plain
-PyTorch; on a CUDA tensor the wrapper launches the kernel or raises.
+* resident (``csrc/fused_pcg_chunk.cu``, :func:`fused_pcg_chunk`): V as
+  dense slabs ``u [dp, Np, Mw]``, one thread block;
+* band (``csrc/band_fused_pcg_chunk.cu``, :func:`band_fused_pcg_chunk`):
+  for large graphs, V as the tile stack of ``ops/band_plan.py`` streamed
+  from device memory by a cooperative grid, plus a few full-height wide
+  columns.
 
-Port of the resident half of ``toyslam_tpu.ops.fused_pcg``.  Not here yet:
-the coarse-level construction (ROADMAP.md A.8) and the streamed band kernel
-(ROADMAP.md B2).
+:func:`fused_mode` picks one.  The preconditioner is PCR on the chain
+(or block-Jacobi), optionally with the additive Galerkin coarse level
+``rmat cinv rmat^T``.  The CPU path runs each kernel's plain PyTorch
+version (:func:`fused_pcg_chunk_ref`, :func:`band_fused_pcg_chunk_ref`);
+on a CUDA tensor a wrapper launches its kernel or raises.
+
+Port of ``toyslam_tpu.ops.fused_pcg``.  Left out: the streamed "fold"
+coarse level and the bf16 PCR planes of the reference's band kernel, both
+workarounds for its on-chip memory (ROADMAP.md B2);
+``build_band_operator_grid`` and ``fused_precond_from_parts``, which serve
+``schur_grid`` (A.9).
 """
 
 from __future__ import annotations
@@ -43,6 +55,11 @@ _i32 = torch.int32
 # and stay fast only while they fit in L2 (50 MB) next to everything else.
 SMEM_BUDGET_BYTES = 232_448
 SLAB_BUDGET_BYTES = 40 * 2**20
+# Budget of the band kernel on an H100: it has no on-chip ceiling (the
+# tile stack streams from device memory on every matvec), so what bounds
+# it is the card's 80 GB, of which this leaves half to the rest of the
+# program and to the build's temporaries.
+BAND_BUDGET_BYTES = 40 * 2**30
 
 
 class FusedOperator(NamedTuple):
@@ -209,6 +226,77 @@ def build_fused_operator(
     )
 
 
+class BandOperator(NamedTuple):
+    """The damped Schur operator in streamed banded form (large graphs);
+    layout from ``ops/band_plan.py``."""
+
+    tiles: torch.Tensor        # f32[n_chunks, K, dp, Wrow, B*dl]
+    win_off: torch.Tensor      # i32[n_chunks, K] window start pose
+    cover: torch.Tensor        # i32[Np, cap] windows covering each pose
+    u: torch.Tensor | None     # f32[dp, Mw, Np] wide + closure columns
+    tdiag: torch.Tensor        # f32[dp, dp, Np]
+    tupper: torch.Tensor
+    tlower: torch.Tensor
+
+
+def build_band_operator(
+    d: schur.BlockSystem, hll_inv: torch.Tensor, graph
+) -> BandOperator:
+    """Materialize the streamed banded operator.
+
+    The per-edge ``Hpl L^{-T}`` blocks go into the tile stack with one
+    gather and one indexed write at the layout's unique ``elem_ids``; wide
+    landmarks and loop closures become full-height columns, as the
+    resident slabs (the wide ones summed with ``index_add_`` where the
+    reference has ``segment_sum``)."""
+    n = graph.num_poses
+    dp = d.hpp_diag.shape[-1]
+    dl = d.hll.shape[-1]
+    band = graph.plan.band
+    w_row, b_dl = band.w_row, band.chunk_b * dl
+    n_tiles = band.n_chunks * band.k_windows
+
+    lh = _chol_spd(d.hll)
+    el = _tri_inv_lower(lh).transpose(-1, -2)              # L^{-T}
+    blk = bm.mm(d.hpl, el[graph.lm_edges.lm])              # [E, dp, dl]
+
+    flat = torch.zeros(n_tiles * dp * w_row * b_dl, dtype=_f32,
+                       device=blk.device)
+    flat[band.elem_ids] = blk[band.src_edges].reshape(-1)
+    tiles = flat.reshape(band.n_chunks, band.k_windows, dp, w_row, b_dl)
+
+    ucols = []
+    if band.n_wide:
+        nw = band.n_wide
+        e_all = blk.shape[0]
+        we = band.wide_edges                               # padded with E
+        ok = we < e_all
+        wej = torch.clamp(we, max=e_all - 1)
+        wvals = blk[wej] * ok[:, None, None].to(_f32)
+        # padded entries go to a dump row past the n*nw real ones
+        wid = torch.where(
+            ok, graph.lm_edges.pose[wej] * nw + band.wide_idx[wej], n * nw)
+        uw = torch.zeros((n * nw + 1, dp, dl), dtype=_f32, device=blk.device)
+        uw.index_add_(0, wid, wvals)
+        ucols.append(
+            uw[: n * nw].reshape(n, nw, dp, dl).permute(2, 1, 3, 0)
+            .reshape(dp, nw * dl, n)
+        )
+    tdiag = d.hpp_diag
+    ccols, extra = _closure_columns(d, graph.plan.fused, n, dp)
+    if ccols is not None:
+        ucols.append(ccols.transpose(1, 2))
+        tdiag = tdiag + extra
+    u = torch.cat(ucols, dim=1).contiguous() if ucols else None
+
+    upper = schur.chain_upper(d, graph.odom.i, graph.odom.j, n)
+    lower = schur._shift_down(upper, 1).transpose(-1, -2)
+    return BandOperator(
+        tiles=tiles, win_off=band.win_off, cover=band.cover, u=u,
+        tdiag=_planes(tdiag), tupper=_planes(upper), tlower=_planes(lower),
+    )
+
+
 def build_fused_precond(
     d: schur.BlockSystem,
     hll_inv: torch.Tensor,
@@ -217,33 +305,57 @@ def build_fused_precond(
     precond: str,
     coarse_group: int,
 ) -> FusedPrecond:
-    """The local preconditioner in the kernel's plane layout: PCR factors
-    of the block-tridiagonal part of S ("tridiag") or the inverse diagonal
-    blocks ("jacobi")."""
+    """The preconditioner in the kernels' plane layout: PCR factors of the
+    block-tridiagonal part of S ("tridiag") or the inverse diagonal blocks
+    ("jacobi"), and with "+coarse" the Galerkin coarse level over groups
+    of ``coarse_group`` poses: its explicit inverse
+    (``schur.build_coarse_precond``) as ``cinv [dp, dp, nc, nc]`` blocks
+    and the 0/1 restriction ``rmat [Np, nc]``."""
     n = graph.num_poses
     dp = d.hpp_diag.shape[-1]
     local_kind, _, coarse_kind = precond.partition("+")
-    if coarse_kind == "coarse":
-        raise NotImplementedError(
-            f"pcg_precond={precond!r}: the coarse-level construction "
-            "(build_coarse_precond, spd_inverse) is not ported yet "
-            "(ROADMAP.md A.8); the kernel itself takes a coarse level"
-        )
     if local_kind == "tridiag":
         upper = schur.chain_upper(d, graph.odom.i, graph.odom.j, n)
         al, ga, binv = schur.build_tridiag_planes(
             s_diag.permute(1, 2, 0), upper.permute(1, 2, 0)
         )
-        return FusedPrecond(al.contiguous(), ga.contiguous(),
-                            binv.contiguous(), None, None)
-    if local_kind != "jacobi":
+        al, ga, binv = al.contiguous(), ga.contiguous(), binv.contiguous()
+    elif local_kind == "jacobi":
+        al = ga = torch.zeros((0, dp, dp, n), dtype=_f32,
+                              device=s_diag.device)
+        binv = _planes(schur.inv_blocks(s_diag))
+    else:
         raise NotImplementedError(
-            f"pcg_precond={precond!r}: the fused kernel takes 'jacobi' or "
+            f"pcg_precond={precond!r}: the fused kernels take 'jacobi' or "
             "'tridiag' local preconditioners"
         )
-    alphas = torch.zeros((0, dp, dp, n), dtype=_f32, device=s_diag.device)
-    return FusedPrecond(alphas, alphas, _planes(schur.inv_blocks(s_diag)),
-                        None, None)
+    if coarse_kind != "coarse":
+        return FusedPrecond(al, ga, binv, None, None)
+    cinv = schur.build_coarse_precond(d, hll_inv, graph, coarse_group)
+    nc = cinv.shape[0] // dp
+    # component-major rows/cols (a*nc + c) -> [a, b, nc, nc] blocks
+    cinv_b = cinv.reshape(dp, nc, dp, nc).permute(0, 2, 1, 3).contiguous()
+    dev = s_diag.device
+    rmat = (
+        (torch.arange(n, device=dev) // coarse_group)[:, None]
+        == torch.arange(nc, device=dev)[None, :]
+    ).to(_f32)
+    return FusedPrecond(al, ga, binv, cinv_b, rmat)
+
+
+def fused_precond_from_graph(cfg, graph, lam: torch.Tensor) -> FusedPrecond:
+    """Assemble and build the fused preconditioner at ``(graph, lam)``: the
+    init and refresh step of the stateful ``pcg_precond_refresh != 1``
+    solve."""
+    sys = schur.assemble_blocks(
+        graph, huber_delta=cfg.huber_delta, fixed_prior=cfg.fixed_prior,
+        exact_odom_jacobians=cfg.exact_odom_jacobians,
+    )
+    d = schur.damp(sys, lam)
+    hll_inv = schur.inv_blocks(d.hll)
+    s_diag = schur.schur_s_diag(d, hll_inv, graph)
+    return build_fused_precond(d, hll_inv, graph, s_diag, cfg.pcg_precond,
+                               cfg.pcg_coarse_group)
 
 
 def chunk_smem_bytes(dp: int, np_: int, mw: int, nc: int) -> int:
@@ -253,13 +365,46 @@ def chunk_smem_bytes(dp: int, np_: int, mw: int, nc: int) -> int:
     return 4 * (7 * dp * np_ + mw + 2 * dp * nc + 2 * 32 + 2)
 
 
+BAND_THREADS = 256   # kThreads in csrc/band_fused_pcg_chunk.cu
+
+
+def band_smem_bytes(w_row: int, b_dl: int) -> int:
+    """Dynamic shared memory of one block of the band kernel: a window of
+    the state or a chunk's ``t`` row, the column halves and the reduction
+    slots (mirrors ``smem_bytes`` in csrc/band_fused_pcg_chunk.cu)."""
+    return 4 * (max(w_row, b_dl) + BAND_THREADS + 64)
+
+
+def band_device_bytes(dp: int, np_: int, band, mw: int, nlevels: int,
+                      nc: int) -> int:
+    """Device memory the band solve holds at once: the tile stack (twice:
+    the zeroed stack and the values written into it), the wide columns,
+    the T, PCR and ``binv`` planes, the coarse level and the kernel's
+    state and workspace (mirrors ``workspace_floats`` in
+    csrc/band_fused_pcg_chunk.cu, with the grid's partial sums left out)."""
+    dd = dp * dp
+    n_ck = band.n_chunks * band.k_windows
+    b_dl = band.chunk_b * band.dl
+    words = (
+        2 * n_ck * dp * band.w_row * b_dl
+        + dp * mw * np_
+        + (4 + 2 * nlevels) * dd * np_
+        + dd * nc * nc + np_ * nc
+        + 12 * dp * np_
+        + n_ck * dp * (b_dl + band.w_row)
+        + np_ * band.cover.shape[-1]
+    )
+    return 4 * words
+
+
 def fused_mode(cfg, graph) -> str:
-    """The gate: "resident" when the kernel can run this graph and config.
+    """The gate: "resident" when the resident kernel can run this graph,
+    else "band" when the graph carries a band layout (``plan.band``) whose
+    operands fit ``BAND_BUDGET_BYTES`` of device memory.
 
     Everything the reference's gate routes elsewhere raises here, naming
     what is missing: the plain PCG loop (``pcg_backend="xla"`` and the
-    reference's fallbacks) and the streamed band kernel (graphs past the
-    resident budget, ROADMAP.md B2)."""
+    reference's fallbacks, ROADMAP.md A.5)."""
     local_kind, _, coarse_kind = cfg.pcg_precond.partition("+")
     if cfg.pcg_backend == "xla" or cfg.pcg_unroll:
         raise NotImplementedError(
@@ -302,12 +447,29 @@ def fused_mode(cfg, graph) -> str:
     slab = 4 * dp * n * mw
     if smem <= SMEM_BUDGET_BYTES and slab <= SLAB_BUDGET_BYTES:
         return "resident"
-    raise NotImplementedError(
-        f"graph with Np={n}, Mw={mw} exceeds the resident kernel's budget "
-        f"(shared memory {smem} > {SMEM_BUDGET_BYTES} B or V slabs {slab} > "
-        f"{SLAB_BUDGET_BYTES} B): it needs the streamed band kernel, not "
-        "ported yet (ROADMAP.md B2)"
-    )
+    band = graph.plan.band
+    if band is None or (band.dp, band.dl) != (dp, dl):
+        raise NotImplementedError(
+            f"graph with Np={n}, Mw={mw} exceeds the resident kernel's "
+            f"budget (shared memory {smem} > {SMEM_BUDGET_BYTES} B or V "
+            f"slabs {slab} > {SLAB_BUDGET_BYTES} B) and carries no band "
+            "layout (plan.band, built by attach_plan from 2048 poses): the "
+            "reference takes its plain PCG loop there, not ported yet "
+            "(ROADMAP.md A.5)"
+        )
+    nlevels = max(1, (n - 1).bit_length()) if local_kind == "tridiag" else 0
+    need = band_device_bytes(dp, n, band, band.n_wide * dl + dp * c,
+                             nlevels, nc)
+    bsmem = band_smem_bytes(band.w_row, band.chunk_b * dl)
+    if need > BAND_BUDGET_BYTES or bsmem > SMEM_BUDGET_BYTES:
+        raise NotImplementedError(
+            f"the band solve of this graph needs {need} B of device memory "
+            f"(budget {BAND_BUDGET_BYTES} B; tile stack {band.tile_bytes} "
+            f"B) and {bsmem} B of shared memory per block (budget "
+            f"{SMEM_BUDGET_BYTES} B): the reference takes its plain PCG "
+            "loop there, not ported yet (ROADMAP.md A.5)"
+        )
+    return "band"
 
 
 # --- the chunk: plain version ------------------------------------------
@@ -530,20 +692,269 @@ def fused_pcg_chunk(
 fused_pcg_chunk.launches = 0
 
 
-def fused_pcg(
-    op: FusedOperator,
+# --- the band chunk: plain version ----------------------------------------
+
+
+def band_matvec_ref(op: BandOperator, x: torch.Tensor) -> torch.Tensor:
+    """``S x = T x - V (V^T x)`` on the banded operator, ``x [dp, Np]``,
+    in plain PyTorch.  ``V V^T x`` per chunk: ``t = sum_{k,a} x[a, window
+    k] . tiles[c, k, a]`` over ALL of the chunk's windows first, then each
+    window gets ``tiles[c, k, a] . t``; splitting ``t`` per window would
+    drop the cross-window terms of a landmark seen in several."""
+    dp, n = x.shape
+    y = _bmv(op.tdiag, x)
+    y = y + _bmv(op.tupper, _shift(x, -1))
+    y = y + _bmv(op.tlower, _shift(x, 1))
+    if op.u is not None:
+        urow = torch.einsum("amp,ap->m", op.u, x)
+        y = y - torch.einsum("amp,m->ap", op.u, urow)
+    nch, k_win, _, w_row, b_dl = op.tiles.shape
+    xext = torch.cat([x, x.new_zeros((dp, w_row))], dim=1)
+    rows = op.win_off.long()[..., None] + torch.arange(w_row, device=x.device)
+    xw = xext[:, rows]                                  # [dp, nch, K, Wrow]
+    xw = xw.permute(1, 2, 0, 3).reshape(nch, 1, k_win * dp * w_row)
+    dmat = op.tiles.reshape(nch, k_win * dp * w_row, b_dl)
+    t = torch.bmm(xw, dmat)                             # [nch, 1, B*dl]
+    wv = torch.bmm(dmat, t.transpose(1, 2))             # [nch, K*dp*Wrow, 1]
+    wv = wv.reshape(nch, k_win, dp, w_row).permute(2, 0, 1, 3)
+    wacc = x.new_zeros((dp, n + w_row))
+    wacc.index_add_(1, rows.reshape(-1), wv.reshape(dp, -1))
+    return y - wacc[:, :n]
+
+
+def band_fused_pcg_chunk_ref(
+    op: BandOperator,
     pre: FusedPrecond,
-    rhs2: torch.Tensor,        # f32[dp, Np]
-    tol: float,
-    max_iters: int,
+    rhs: torch.Tensor,
+    st: ChunkState,
+    atol2: torch.Tensor,
+    maxit: int,
+    restart: bool,
     chunk_iters: int,
-    restart_every: int = 64,
-) -> schur.PCGResult:
-    """PCG on the fused operator: true-residual replacement and direction
+) -> ChunkState:
+    """One launch of the band kernel in plain PyTorch: the oracle of the
+    kernel and the CPU path.
+
+    ``chunk_iters`` PCG trips, then one extra trip whose matvec is on ``x``
+    and gives the true residual (``alpha = 0`` there, so ``x`` and ``r``
+    take a zero step and nothing else changes).  Restart replaces ``r``
+    with the carried true residual; breakdown sets the sticky stop; a done
+    trip masks to a no-op."""
+    atol2 = atol2.reshape(())
+    x = st.x
+    r = st.rt if restart else st.r
+    if restart:
+        z = _precond_ref(pre, r)
+        p, rz = z, (r * z).sum()
+    else:
+        p, rz = st.p, st.rz.reshape(())
+    rr = (r * r).sum()
+    stop = st.stop.reshape(()) > 0
+    it = st.it.reshape(())
+    for _ in range(chunk_iters):
+        ap = band_matvec_ref(op, p)
+        pap = (p * ap).sum()
+        stop = stop | ~(pap > 0.0) | ~torch.isfinite(pap)
+        done = stop | (rr <= atol2) | (it >= maxit)
+        alpha = torch.where(done, 0.0, rz / torch.where(done, 1.0, pap))
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = _precond_ref(pre, r)
+        rz_new = (r * z).sum()
+        rr = (r * r).sum()
+        beta = torch.where(
+            done, 0.0, rz_new / torch.where(rz == 0.0, 1.0, rz)
+        )
+        p = torch.where(done, p, z + beta * p)
+        rz = torch.where(done, rz, rz_new)
+        it = it + (~done).to(it.dtype)
+    # the extra trip: the matvec on x, and the reference's zero step (which
+    # carries a non-finite ap into r, as the kernel does)
+    ap = band_matvec_ref(op, x)
+    r_true = rhs - ap
+    x = x + 0.0 * p
+    r = r - 0.0 * ap
+    return ChunkState(
+        x=x, r=r, p=p, rt=r_true, it=it.reshape(1), rz=rz.reshape(1),
+        stop=stop.to(_i32).reshape(1),
+        rr=(r_true * r_true).sum().reshape(1),
+    )
+
+
+# --- the band chunk: kernel ------------------------------------------------
+
+_BAND_DIMS = ("dp", "np", "n_chunks", "k_win", "w_row", "b_dl", "mw",
+              "nlevels", "nc", "cover_cap", "chunk_iters", "maxit",
+              "restart", "grid")
+_BAND_PTRS = 30
+
+
+@functools.cache
+def _band_library() -> ctypes.CDLL:
+    """The band kernel's shared library (built at first use), with its C
+    signatures declared."""
+    from toyslam_torch import kernels
+
+    lib = kernels.load("band_fused_pcg_chunk").lib
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.band_fused_pcg_chunk_grid.argtypes = [ci, ci, ci,
+                                              ctypes.POINTER(ci)]
+    lib.band_fused_pcg_chunk_grid.restype = ci
+    lib.band_fused_pcg_chunk_workspace_floats.argtypes = [
+        ctypes.POINTER(ci), ci]
+    lib.band_fused_pcg_chunk_workspace_floats.restype = ctypes.c_longlong
+    lib.band_fused_pcg_chunk_launch.argtypes = [
+        ctypes.POINTER(ci), ci, ctypes.POINTER(vp), ci, vp]
+    lib.band_fused_pcg_chunk_launch.restype = ci
+    return lib
+
+
+def band_grid_blocks(device: torch.device, w_row: int, b_dl: int) -> int:
+    """Blocks of the band kernel's cooperative grid on ``device``: as many
+    as can be resident at once (at most 4 per SM)."""
+    grid = ctypes.c_int(0)
+    err = _band_library().band_fused_pcg_chunk_grid(
+        device.index or 0, w_row, b_dl, ctypes.byref(grid))
+    if err != 0:
+        raise RuntimeError(
+            f"band_fused_pcg_chunk: occupancy query failed: cudaError_t {err}")
+    if grid.value < 1:
+        raise ValueError(
+            f"band_fused_pcg_chunk: the cooperative grid does not fit on "
+            f"{torch.cuda.get_device_name(device)} (Wrow={w_row}, "
+            f"B*dl={b_dl}: no block can be resident)"
+        )
+    return grid.value
+
+
+def _band_launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters):
+    dev = rhs.device
+    dp, n = rhs.shape
+    nch, k_win, _, w_row, b_dl = op.tiles.shape
+    mw = 0 if op.u is None else op.u.shape[1]
+    nl = pre.alphas.shape[0]
+    has_coarse = pre.cinv is not None
+    nc = pre.cinv.shape[-1] if has_coarse else 0
+    cap = op.cover.shape[-1]
+    if dp != 3:
+        raise NotImplementedError(
+            f"band_fused_pcg_chunk kernel: dp={dp}; only dp=3 (SE(2)) is "
+            "built (dp=6 comes with the SE(3) port, ROADMAP.md A.10)"
+        )
+    if b_dl % 128 or w_row < 1:
+        raise ValueError(
+            f"band_fused_pcg_chunk: B*dl={b_dl} must be a multiple of 128 "
+            f"and Wrow={w_row} positive"
+        )
+    if nch * k_win * dp * max(w_row, b_dl) >= 2**31:
+        raise ValueError("band_fused_pcg_chunk: the partial buffers "
+                         "overflow the kernel's 32-bit offsets")
+    vec = (dp, n)
+    planes = (dp, dp, n)
+    checks = [
+        ("rhs", rhs, vec, _f32), ("x", st.x, vec, _f32),
+        ("r", st.r, vec, _f32), ("p", st.p, vec, _f32),
+        ("rt", st.rt, vec, _f32), ("it", st.it, (1,), _i32),
+        ("rz", st.rz, (1,), _f32), ("stop", st.stop, (1,), _i32),
+        ("atol2", atol2, (1,), _f32),
+        ("tiles", op.tiles, (nch, k_win, dp, w_row, b_dl), _f32),
+        ("win_off", op.win_off, (nch, k_win), _i32),
+        ("cover", op.cover, (n, cap), _i32),
+        ("tdiag", op.tdiag, planes, _f32), ("tupper", op.tupper, planes, _f32),
+        ("tlower", op.tlower, planes, _f32),
+        ("alphas", pre.alphas, (nl,) + planes, _f32),
+        ("gammas", pre.gammas, (nl,) + planes, _f32),
+        ("binv", pre.binv, planes, _f32),
+    ]
+    if mw:
+        checks.append(("u", op.u, (dp, mw, n), _f32))
+    if has_coarse:
+        checks += [("cinv", pre.cinv, (dp, dp, nc, nc), _f32),
+                   ("rmat", pre.rmat, (n, nc), _f32)]
+    elif pre.rmat is not None:
+        raise ValueError("rmat given without cinv")
+    for name, t, shape, dtype in checks:
+        _check(name, t, shape, dtype, dev)
+
+    lib = _band_library()
+    grid = band_grid_blocks(dev, w_row, b_dl)
+    dims = dict(dp=dp, np=n, n_chunks=nch, k_win=k_win, w_row=w_row,
+                b_dl=b_dl, mw=mw, nlevels=nl, nc=nc, cover_cap=cap,
+                chunk_iters=chunk_iters, maxit=int(maxit),
+                restart=int(bool(restart)), grid=grid)
+    c_dims = (ctypes.c_int * len(_BAND_DIMS))(*(dims[k] for k in _BAND_DIMS))
+    ws_floats = lib.band_fused_pcg_chunk_workspace_floats(
+        c_dims, len(_BAND_DIMS))
+    if ws_floats < 0:
+        raise ValueError("band_fused_pcg_chunk: the kernel refused the "
+                         f"dimensions {dims}")
+    work = torch.empty(ws_floats, dtype=_f32, device=dev)
+    out = ChunkState(
+        x=torch.empty(vec, dtype=_f32, device=dev),
+        r=torch.empty(vec, dtype=_f32, device=dev),
+        p=torch.empty(vec, dtype=_f32, device=dev),
+        rt=torch.empty(vec, dtype=_f32, device=dev),
+        it=torch.empty(1, dtype=_i32, device=dev),
+        rz=torch.empty(1, dtype=_f32, device=dev),
+        stop=torch.empty(1, dtype=_i32, device=dev),
+        rr=torch.empty(1, dtype=_f32, device=dev),
+    )
+
+    def ptr(t):
+        return None if t is None or t.numel() == 0 else t.data_ptr()
+
+    ptrs = [
+        atol2, st.it, st.rz, st.stop, rhs, st.x, st.r, st.p, st.rt,
+        op.tiles, op.win_off, op.cover, op.u, op.tdiag, op.tupper,
+        op.tlower, pre.alphas, pre.gammas, pre.binv, pre.cinv, pre.rmat,
+        out.x, out.r, out.p, out.rt, out.it, out.rz, out.stop, out.rr, work,
+    ]
+    assert len(ptrs) == _BAND_PTRS
+    c_ptrs = (ctypes.c_void_p * _BAND_PTRS)(*(ptr(t) for t in ptrs))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.band_fused_pcg_chunk_launch(
+        c_dims, len(_BAND_DIMS), c_ptrs, _BAND_PTRS, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"band_fused_pcg_chunk launch failed: cudaError_t {err}")
+    band_fused_pcg_chunk.launches += 1
+    return out
+
+
+def band_fused_pcg_chunk(
+    op: BandOperator,
+    pre: FusedPrecond,
+    rhs: torch.Tensor,
+    st: ChunkState,
+    atol2: torch.Tensor,
+    maxit: int,
+    restart: bool,
+    chunk_iters: int,
+) -> ChunkState:
+    """One chunk of PCG on the banded operator.  On CUDA tensors this
+    launches the hand-written kernel (csrc/band_fused_pcg_chunk.cu) and
+    counts it in ``band_fused_pcg_chunk.launches``; on CPU tensors it runs
+    :func:`band_fused_pcg_chunk_ref`."""
+    if rhs.device.type == "cpu":
+        return band_fused_pcg_chunk_ref(op, pre, rhs, st, atol2, maxit,
+                                        restart, chunk_iters)
+    if rhs.device.type != "cuda":
+        raise ValueError(f"band_fused_pcg_chunk: no kernel for {rhs.device}")
+    return _band_launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters)
+
+
+band_fused_pcg_chunk.launches = 0
+
+
+# --- the host loop -----------------------------------------------------------
+
+
+def _chunked_pcg(chunk, op, pre, rhs2, tol, max_iters, chunk_iters,
+                 restart_every) -> schur.PCGResult:
+    """PCG in launches of ``chunk``: true-residual replacement and direction
     restart every ``restart_every`` iterations (in whole chunks), masked
     no-op iterations after convergence or breakdown.  The convergence test
     reads one flag per chunk to the host."""
-    dp, n = rhs2.shape
     rhs_norm2 = (rhs2 * rhs2).sum()
     atol2 = ((tol ** 2) * rhs_norm2).reshape(1)
     n_chunks = -(-max_iters // chunk_iters)
@@ -561,12 +972,43 @@ def fused_pcg(
     while k < n_chunks and bool(
         ((st.rr > atol2) & (st.stop == 0)).item()   # host sync, once a chunk
     ):
-        st = fused_pcg_chunk(op, pre, rhs2, st, atol2, max_iters,
-                             k % restart_chunks == 0, chunk_iters)
+        st = chunk(op, pre, rhs2, st, atol2, max_iters,
+                   k % restart_chunks == 0, chunk_iters)
         k += 1
     return schur.PCGResult(
         x=st.x, iterations=st.it[0], residual_norm=torch.sqrt(st.rr[0]),
     )
+
+
+def fused_pcg(
+    op: FusedOperator,
+    pre: FusedPrecond,
+    rhs2: torch.Tensor,        # f32[dp, Np]
+    tol: float,
+    max_iters: int,
+    chunk_iters: int,
+    restart_every: int = 64,
+) -> schur.PCGResult:
+    """PCG on the resident fused operator, one :func:`fused_pcg_chunk`
+    per chunk."""
+    return _chunked_pcg(fused_pcg_chunk, op, pre, rhs2, tol, max_iters,
+                        chunk_iters, restart_every)
+
+
+def band_fused_pcg(
+    op: BandOperator,
+    pre: FusedPrecond,
+    rhs2: torch.Tensor,        # f32[dp, Np]
+    tol: float,
+    max_iters: int,
+    chunk_iters: int,
+    restart_every: int = 64,
+) -> schur.PCGResult:
+    """PCG on the streamed banded operator, one
+    :func:`band_fused_pcg_chunk` per chunk; the same control as
+    :func:`fused_pcg`."""
+    return _chunked_pcg(band_fused_pcg_chunk, op, pre, rhs2, tol, max_iters,
+                        chunk_iters, restart_every)
 
 
 def fused_schur_solve(
@@ -579,28 +1021,36 @@ def fused_schur_solve(
     coarse_group: int,
     chunk_iters: int,
     restart_every: int = 64,
+    pre: FusedPrecond | None = None,
     mode: str = "resident",
 ) -> tuple[torch.Tensor, torch.Tensor, schur.SolveStats]:
     """Damp, eliminate the landmarks, run the fused PCG on the reduced
-    pose system, back-substitute the landmarks.  Returns
-    ``(dx_poses [N,3], dx_landmarks [M,2], stats)``."""
-    if mode != "resident":
-        raise NotImplementedError(
-            f"fused mode {mode!r}: only the resident kernel is ported; the "
-            "streamed band kernel is ROADMAP.md B2"
-        )
+    pose system, back-substitute the landmarks.  ``mode`` (from
+    :func:`fused_mode`) picks the resident or the streamed band operator;
+    a prebuilt ``pre`` skips the preconditioner build (the stateful
+    refresh path).  Returns ``(dx_poses [N,3], dx_landmarks [M,2],
+    stats)``."""
+    if mode not in ("resident", "band"):
+        raise ValueError(f"fused mode {mode!r}: 'resident' or 'band'")
     plan = graph.plan
     d = schur.damp(sys, lam)
     hll_inv = schur.inv_blocks(d.hll)
     rhs = -d.bp + schur.hpl_matvec(
         d, graph.lm_edges.lm, bm.mv(hll_inv, d.bl), plan
     )
-    s_diag = schur.schur_s_diag(d, hll_inv, graph)
-    pre = build_fused_precond(d, hll_inv, graph, s_diag, precond,
-                              coarse_group)
-    op = build_fused_operator(d, hll_inv, graph)
-    res = fused_pcg(op, pre, rhs.T.contiguous(), tol, max_iters,
-                    chunk_iters, restart_every)
+    if pre is None:
+        s_diag = schur.schur_s_diag(d, hll_inv, graph)
+        pre = build_fused_precond(d, hll_inv, graph, s_diag, precond,
+                                  coarse_group)
+    rhs2 = rhs.T.contiguous()
+    if mode == "band":
+        bop = build_band_operator(d, hll_inv, graph)
+        res = band_fused_pcg(bop, pre, rhs2, tol, max_iters, chunk_iters,
+                             restart_every)
+    else:
+        op = build_fused_operator(d, hll_inv, graph)
+        res = fused_pcg(op, pre, rhs2, tol, max_iters, chunk_iters,
+                        restart_every)
     dx_p = res.x.T
     u = schur.hlp_matvec(d, graph.lm_edges.pose, dx_p, plan)
     dx_l = bm.mv(hll_inv, -d.bl - u)

@@ -22,6 +22,11 @@ import torch
 
 from toyslam_torch.models.graph import FactorGraph2D, TensorTree
 
+# pose count from which the band layout is searched, by landmark width:
+# SE(2) (dl=2) from 2048 poses; BA (dl=3), whose resident V slabs are 3x
+# larger per (pose, landmark), from 192
+BAND_THRESHOLD = {2: 2048, 3: 192}
+
 
 @dataclasses.dataclass(frozen=True)
 class VertexTable(TensorTree):
@@ -49,6 +54,9 @@ class GatherPlan(TensorTree):
     odom_by_i: VertexTable    # odometry edges grouped by first pose
     odom_by_j: VertexTable    # odometry edges grouped by second pose
     fused: FusedAux | None = None
+    # ops.band_plan.BandAux on large graphs with run-local observations:
+    # opens the streamed band kernel (fused_pcg.fused_mode "band")
+    band: object = None
 
 
 def _build_table(
@@ -76,11 +84,25 @@ def _build_table(
     )
 
 
-def build_gather_plan(graph: FactorGraph2D) -> GatherPlan:
+def build_gather_plan(
+    graph: FactorGraph2D, want_band: bool | None = None
+) -> GatherPlan:
     """Host-side construction from the graph's index arrays (one copy to the
-    host per graph structure); the tables land on the graph's device."""
+    host per graph structure); the tables land on the graph's device.
+
+    From ``BAND_THRESHOLD`` poses on, the band layout search
+    (``ops.band_plan.build_band_aux``, seconds of host time at 10k) runs
+    too, unless ``want_band`` is False."""
     n, m = graph.num_poses, graph.num_landmarks
     dev = graph.device
+    # block geometry off the state arrays: (3, 2) = SE(2), (6, 3) = BA
+    dl = int(graph.landmarks.shape[-1])
+    dp = 3 if dl == 2 else 6
+    band = None
+    if n >= BAND_THRESHOLD[dl] and want_band is not False:
+        from toyslam_torch.ops.band_plan import build_band_aux
+
+        band = build_band_aux(graph, dp=dp, dl=dl)
 
     def host(t):
         return t.detach().cpu().numpy()
@@ -105,12 +127,16 @@ def build_gather_plan(graph: FactorGraph2D) -> GatherPlan:
             closure_j=torch.as_tensor(od_j[closure], dtype=torch.int64,
                                       device=dev),
         ),
+        band=band,
     )
 
 
-def attach_plan(graph: FactorGraph2D) -> FactorGraph2D:
+def attach_plan(
+    graph: FactorGraph2D, want_band: bool | None = None
+) -> FactorGraph2D:
     """Graph with gather tables attached (host-side, once per structure)."""
-    return dataclasses.replace(graph, plan=build_gather_plan(graph))
+    return dataclasses.replace(
+        graph, plan=build_gather_plan(graph, want_band=want_band))
 
 
 def table_sum(values: torch.Tensor, table: VertexTable) -> torch.Tensor:

@@ -5,7 +5,9 @@ Jacobian conventions (those of ``toyslam_tpu.ops.residuals``):
 * landmark edge: residual ``r = R(th)^T (lm - t) - [d cos(b), d sin(b)]``;
   ``A = dr/d(pose)`` (2x3), ``B = dr/d(lm)`` (2x2), the true Jacobians;
 * odometry edge: residual ``odom^-1 ⊕ (p_i^-1 ⊕ p_j)`` with the upstream
-  optimizer's approximation ``A = -I3, B = I3``.
+  optimizer's approximation ``A = -I3, B = I3``; ``exact=True`` gives the
+  true Jacobians of that residual in closed form (the JAX package takes
+  them by ``jax.jacfwd``).
 """
 
 from __future__ import annotations
@@ -55,20 +57,57 @@ def eval_odom_edges(
     huber_delta: float,
     exact: bool = False,
 ) -> EdgeEval:
-    """Residuals/Jacobians for all odometry edges (``A = -I, B = I``)."""
+    """Residuals/Jacobians for all odometry edges: ``A = -I, B = I``, or
+    with ``exact`` the true Jacobians (:func:`_exact_odom_jacobians`)."""
+    pi, pj = poses[i], poses[j]
+    r = se2.compose(se2.inverse(meas), se2.relative(pi, pj))
     if exact:
-        raise NotImplementedError(
-            "exact_odom_jacobians=True is not ported yet (ROADMAP.md, "
-            "queue A: exact_odom_jacobians)"
-        )
-    r = se2.compose(se2.inverse(meas), se2.relative(poses[i], poses[j]))
-    e = r.shape[0]
-    eye = torch.eye(3, dtype=r.dtype, device=r.device)
-    JA = (-eye).expand(e, 3, 3)
-    JB = eye.expand(e, 3, 3)
+        JA, JB = _exact_odom_jacobians(pi, pj, meas)
+    else:
+        e = r.shape[0]
+        eye = torch.eye(3, dtype=r.dtype, device=r.device)
+        JA = (-eye).expand(e, 3, 3)
+        JB = eye.expand(e, 3, 3)
     chi2 = bm.vwv(r, info, r) * mask
     robust_err, w = huber_weights(chi2, huber_delta)
     return EdgeEval(r, JA, JB, chi2, w * mask, robust_err * mask)
+
+
+def _exact_odom_jacobians(
+    a: torch.Tensor, b: torch.Tensor, m: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Closed-form ``d r / d a`` and ``d r / d b`` of
+    ``r = m^-1 ⊕ (a^-1 ⊕ b)``.
+
+    With ``q = R(ta)^T (tb - ta_xy)`` the relative translation,
+    ``r_xy = R(tm)^T q + const`` and ``r_th = th_b - th_a - th_m``
+    (wrapped, derivative 1), so
+    ``dr_xy/da = R(tm)^T [-R(ta)^T | (q_y, -q_x)]``,
+    ``dr_xy/db = R(tm)^T [ R(ta)^T | 0]``."""
+    ca, sa = torch.cos(a[..., 2]), torch.sin(a[..., 2])
+    cm, sm = torch.cos(m[..., 2]), torch.sin(m[..., 2])
+    dx = b[..., 0] - a[..., 0]
+    dy = b[..., 1] - a[..., 1]
+    qx = ca * dx + sa * dy
+    qy = -sa * dx + ca * dy
+    # R(tm)^T R(ta)^T
+    m00 = cm * ca - sm * sa
+    m01 = cm * sa + sm * ca
+    m10 = -sm * ca - cm * sa
+    m11 = -sm * sa + cm * ca
+    z = torch.zeros_like(ca)
+    one = torch.ones_like(ca)
+    JA = torch.stack([
+        torch.stack([-m00, -m01, cm * qy - sm * qx], -1),
+        torch.stack([-m10, -m11, -sm * qy - cm * qx], -1),
+        torch.stack([z, z, -one], -1),
+    ], -2)
+    JB = torch.stack([
+        torch.stack([m00, m01, z], -1),
+        torch.stack([m10, m11, z], -1),
+        torch.stack([z, z, one], -1),
+    ], -2)
+    return JA, JB
 
 
 def eval_landmark_edges(

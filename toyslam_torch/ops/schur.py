@@ -7,17 +7,21 @@ landmarks are eliminated locally and the reduced pose system
 
 is solved by preconditioned conjugate gradients.  This module holds the
 blocks, their per-vertex sums, the damping, the small-block inverses, the
-block-tridiagonal PCR preconditioner build and the linearize-solve that
-``GaussNewton`` calls; the PCG loop itself is the fused kernel of
-``ops/fused_pcg.py``.
+block-tridiagonal PCR preconditioner build, the Galerkin coarse level
+(``build_coarse_precond``, ``spd_inverse``) and the linearize-solve that
+``GaussNewton`` calls, stateful when the preconditioner is refreshed only
+every ``pcg_precond_refresh`` iterations; the PCG loop itself is a fused
+kernel of ``ops/fused_pcg.py``.
 
-Subset of ``toyslam_tpu.ops.schur`` on the main path.  Not here yet
-(ROADMAP.md §A): the plain ``schur_solve``/``pcg`` loop, the chunk and coarse
-preconditioners, and the stateful ``pcg_precond_refresh != 1`` solve.
+Subset of ``toyslam_tpu.ops.schur``.  Not here yet (ROADMAP.md §A): the
+plain ``schur_solve``/``pcg`` loop, ``coarse_apply`` and the chunk
+preconditioner.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import NamedTuple
 
 import torch
@@ -27,6 +31,7 @@ from toyslam_torch.models.graph import FactorGraph2D
 from toyslam_torch.ops import blockmath as bm
 from toyslam_torch.ops import edge_blocks
 from toyslam_torch.ops import gather_plan as gp
+from toyslam_torch.ops import residuals as res_ops
 
 
 def _plan(graph: FactorGraph2D) -> gp.GatherPlan:
@@ -59,23 +64,36 @@ def assemble_blocks(
 ) -> BlockSystem:
     """Linearize every edge and sum the blocks per vertex through the
     graph's gather tables."""
-    if exact_odom_jacobians:
-        raise NotImplementedError(
-            "exact_odom_jacobians=True is not ported yet (ROADMAP.md, "
-            "queue A: exact_odom_jacobians)"
-        )
     plan = _plan(graph)
     t_oi, t_oj = plan.odom_by_i, plan.odom_by_j
     t_lp, t_ll = plan.lm_by_pose, plan.lm_by_lm
 
-    # A=-I, B=I collapses every odometry product to ±W'
-    ob = edge_blocks.odom_edge_blocks(
-        graph.poses, graph.odom.i, graph.odom.j, graph.odom.meas,
-        graph.odom.info, graph.odom.mask, huber_delta,
-    )
-    bp = gp.table_sum(-ob.wr, t_oi) + gp.table_sum(ob.wr, t_oj)
-    hpp_diag = gp.table_sum(ob.w_info, t_oi) + gp.table_sum(ob.w_info, t_oj)
-    hpp_off = -ob.w_info
+    if exact_odom_jacobians:
+        # general odometry Jacobians: the full products
+        od = res_ops.eval_odom_edges(
+            graph.poses, graph.odom.i, graph.odom.j, graph.odom.meas,
+            graph.odom.info, graph.odom.mask, huber_delta, exact=True,
+        )
+        w_od = od.w[:, None, None] * graph.odom.info
+        ata = bm.quad(od.JA, w_od)
+        btb = bm.quad(od.JB, w_od)
+        atb = bm.mtm(od.JA, bm.mm(w_od, od.JB))
+        wr_i = bm.mtv(od.JA, bm.mv(w_od, od.r))
+        wr_j = bm.mtv(od.JB, bm.mv(w_od, od.r))
+        odom_err = od.robust_err.sum()
+    else:
+        # A=-I, B=I collapses every odometry product to ±W'
+        ob = edge_blocks.odom_edge_blocks(
+            graph.poses, graph.odom.i, graph.odom.j, graph.odom.meas,
+            graph.odom.info, graph.odom.mask, huber_delta,
+        )
+        ata = btb = ob.w_info
+        atb = -ob.w_info
+        wr_i, wr_j = -ob.wr, ob.wr
+        odom_err = ob.robust_err.sum()
+    bp = gp.table_sum(wr_i, t_oi) + gp.table_sum(wr_j, t_oj)
+    hpp_diag = gp.table_sum(ata, t_oi) + gp.table_sum(btb, t_oj)
+    hpp_off = atb
 
     lb = edge_blocks.lm_edge_blocks(
         graph.poses, graph.landmarks, graph.lm_edges.pose, graph.lm_edges.lm,
@@ -97,7 +115,7 @@ def assemble_blocks(
     bp = bp * (1.0 - graph.pose_fixed)[:, None]
     bl = bl * (1.0 - graph.lm_fixed)[:, None]
 
-    err = ob.robust_err.sum() + lb.robust_err.sum()
+    err = odom_err + lb.robust_err.sum()
     return BlockSystem(
         hpp_diag=hpp_diag, hpp_off=hpp_off, hll=hll, hpl=lb.w_hpl,
         bp=bp, bl=bl, err=err,
@@ -302,6 +320,146 @@ def chain_upper(
     return up.index_add_(0, odom_i, sys.hpp_off * m[:, None, None])
 
 
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """Dense float32 products in full float32: TF32 off on the GPU for the
+    duration (the reference asks XLA for HIGHEST precision), restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _block_pivot_floor(a: torch.Tensor) -> torch.Tensor:
+    """Per-block pivot floor relative to the block's diagonal scale, so a
+    clamped pivot stays on the block's own scale."""
+    scale = torch.diagonal(a, dim1=-2, dim2=-1).abs().amax(-1)
+    return torch.clamp(1.2e-7 * scale, min=1e-30)
+
+
+def _chol2x2(a: torch.Tensor) -> torch.Tensor:
+    """Closed-form Cholesky of batched SPD 2x2 blocks (clamped pivots, the
+    sub-diagonal of a clamped column zeroed)."""
+    tiny = _block_pivot_floor(a)
+    d0 = a[..., 0, 0]
+    s = torch.sqrt(torch.maximum(d0, tiny))
+    l10 = torch.where(d0 > tiny, a[..., 1, 0] / s, 0.0)
+    l11 = torch.sqrt(torch.maximum(a[..., 1, 1] - l10 * l10, tiny))
+    z = torch.zeros_like(s)
+    return torch.stack(
+        [torch.stack([s, z], dim=-1), torch.stack([l10, l11], dim=-1)],
+        dim=-2,
+    )
+
+
+def _chol_small(a: torch.Tensor) -> torch.Tensor:
+    """Batched Cholesky of tiny SPD blocks with clamped pivots: the bounded,
+    exact factor of a nearby SPD matrix.  Closed forms for 2x2/3x3."""
+    k = a.shape[-1]
+    if k == 2:
+        return _chol2x2(a)
+    if k == 3:
+        tiny = _block_pivot_floor(a)
+        d0 = a[..., 0, 0]
+        ok0 = d0 > tiny
+        l00 = torch.sqrt(torch.maximum(d0, tiny))
+        l10 = torch.where(ok0, a[..., 1, 0] / l00, 0.0)
+        l20 = torch.where(ok0, a[..., 2, 0] / l00, 0.0)
+        d1 = a[..., 1, 1] - l10 * l10
+        ok1 = d1 > tiny
+        l11 = torch.sqrt(torch.maximum(d1, tiny))
+        l21 = torch.where(ok1, (a[..., 2, 1] - l20 * l10) / l11, 0.0)
+        l22 = torch.sqrt(
+            torch.maximum(a[..., 2, 2] - l20 * l20 - l21 * l21, tiny)
+        )
+        z = torch.zeros_like(l00)
+        return torch.stack([
+            torch.stack([l00, z, z], -1),
+            torch.stack([l10, l11, z], -1),
+            torch.stack([l20, l21, l22], -1),
+        ], -2)
+    return torch.linalg.cholesky(a)
+
+
+def spd_inverse(
+    sc: torch.Tensor, ns_iters: int | None = None, cond_bound: float = 2e4,
+) -> torch.Tensor:
+    """Explicit inverse of a dense SPD matrix by Jacobi equilibration and
+    Newton-Schulz, ``X <- X (2 I - A X)`` from ``X = I / ||A||_inf``.
+
+    Every iterate is a polynomial in A, so the result is SPD at any
+    iteration count.  ``ceil(log2(cond_bound)) + 10`` steps cover the slow
+    phase and the quadratic tail; callers bound cond by a 1e-4 relative
+    diagonal boost.  The products run in full float32."""
+    if ns_iters is None:
+        ns_iters = int(math.ceil(math.log2(cond_bound))) + 10
+    s = torch.rsqrt(torch.clamp(torch.diagonal(sc), min=1e-30))
+    a = sc * s[:, None] * s[None, :]
+    lmax = a.abs().sum(1).max()
+    eye = torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+    x = (1.0 / lmax) * eye
+    two_eye = 2.0 * eye
+    with _full_f32_matmul():
+        for _ in range(ns_iters):
+            x = x @ (two_eye - a @ x)
+    # rescale first, symmetrize last: the result is exactly symmetric
+    x = x * (s[:, None] * s[None, :])
+    return 0.5 * (x + x.T)
+
+
+def build_coarse_precond(
+    d: BlockSystem,
+    hll_inv: torch.Tensor,
+    graph: FactorGraph2D,
+    group: int,
+) -> torch.Tensor:
+    """Galerkin coarse operator of the two-level preconditioner, returned as
+    its dense explicit inverse ``[dp*nc, dp*nc]`` (component-major: row
+    ``a*nc + c``).
+
+    Every ``group`` consecutive poses aggregate into one super-pose (0/1
+    restriction R), and ``S_c = R^T S R`` is built from the block pieces:
+    ``R^T Hpp R`` by sums over group pairs, and the fill
+    ``R^T Hpl Hll^-1 Hlp R = V V^T`` with ``U = R^T Hpl`` (one sum over the
+    edges) and ``V = U chol(Hll^-1)``: one ``[dp*nc, dl*M]`` product.  The
+    reference's ``segment_sum``s are ``index_add_`` here."""
+    n, m = graph.num_poses, graph.num_landmarks
+    dp = d.hpp_diag.shape[-1]
+    dl = d.hll.shape[-1]
+    dev, dt = d.hpp_diag.device, d.hpp_diag.dtype
+    nc = -(-n // group)     # the last aggregate may hold fewer poses
+
+    gid = torch.arange(n, device=dev) // group
+    gi = graph.odom.i // group
+    gj = graph.odom.j // group
+    hc = torch.zeros((nc * nc, dp, dp), dtype=dt, device=dev)
+    hc.index_add_(0, gid * nc + gid, d.hpp_diag)
+    hc.index_add_(0, gi * nc + gj, d.hpp_off)
+    hc.index_add_(0, gj * nc + gi, d.hpp_off.transpose(-1, -2))
+    sc = hc.reshape(nc, nc, dp, dp).permute(2, 0, 3, 1).reshape(
+        dp * nc, dp * nc
+    )
+
+    ids = (graph.lm_edges.pose // group) * m + graph.lm_edges.lm
+    u = torch.zeros((nc * m, dp * dl), dtype=dt, device=dev)
+    u.index_add_(0, ids, d.hpl.reshape(-1, dp * dl))
+    u = u.reshape(nc, m, dp, dl)                    # U[c, lm, a, b]
+    el = _chol_small(hll_inv)                       # [m, dl, dl] lower
+    # V[a*nc + c, b2*m + lm] = sum_b U[c, lm, a, b] L[lm, b, b2]
+    v = sum(u[..., b, None] * el[None, :, None, b, :] for b in range(dl))
+    vf = v.permute(2, 0, 3, 1).reshape(dp * nc, dl * m)
+    with _full_f32_matmul():
+        sc = sc - vf @ vf.T
+    # scale-relative jitter: an SPD margin against f32 rounding
+    sc = sc + torch.diag(1e-4 * torch.diagonal(sc))
+    return spd_inverse(sc)
+
+
 class PCGResult(NamedTuple):
     x: torch.Tensor
     iterations: torch.Tensor
@@ -317,31 +475,57 @@ class SolveStats(NamedTuple):
 
 def schur_linearize_solve(cfg: OptimizerConfig):
     """The linearize-solve that ``GaussNewton`` calls each iteration:
-    assemble, then the fused resident PCG solve.
+    assemble, then the fused PCG solve in the mode the gate
+    (``fused_pcg.fused_mode``) picks: the resident kernel or the streamed
+    band kernel.  The gate raises where the reference would take its plain
+    PCG loop.
 
-    Only the reference's ``pcg_precond_refresh == 1`` branch exists here;
-    the gate (``fused_pcg.fused_mode``) raises where the reference would
-    take its plain PCG loop or the streamed band kernel."""
-    if cfg.pcg_precond_refresh != 1:
-        raise NotImplementedError(
-            f"pcg_precond_refresh={cfg.pcg_precond_refresh}: only 1 "
-            "(rebuild every iteration) is ported (ROADMAP.md, queue A: "
-            "pcg_precond_refresh != 1)"
-        )
+    With ``cfg.pcg_precond_refresh != 1`` the solve is *stateful*: it
+    exposes ``init_state(graph)`` and takes and returns a
+    ``(FusedPrecond, call_count)`` carry, so ``GaussNewton`` threads one
+    preconditioner through its loop.  It is rebuilt (at the current graph
+    and lambda) when ``calls % refresh == 0 and calls > 0``, so only for
+    ``refresh > 1``; ``refresh <= 0`` keeps the first one."""
     from toyslam_torch.ops import fused_pcg as fp
 
-    def solve(graph: FactorGraph2D, lam: torch.Tensor):
-        mode = fp.fused_mode(cfg, graph)
-        sys = assemble_blocks(
+    def _assemble(graph: FactorGraph2D) -> BlockSystem:
+        return assemble_blocks(
             graph, huber_delta=cfg.huber_delta,
             fixed_prior=cfg.fixed_prior,
             exact_odom_jacobians=cfg.exact_odom_jacobians,
         )
+
+    def _solve(graph, lam, pre=None):
+        mode = fp.fused_mode(cfg, graph)
+        sys = _assemble(graph)
         dx_p, dx_l, stats = fp.fused_schur_solve(
             sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters,
             cfg.pcg_precond, cfg.pcg_coarse_group, cfg.pcg_fused_chunk,
-            cfg.pcg_restart_every, mode=mode,
+            cfg.pcg_restart_every, pre=pre, mode=mode,
         )
         return dx_p, dx_l, sys.err, stats
 
-    return solve
+    refresh = cfg.pcg_precond_refresh
+    if refresh == 1:
+
+        def solve(graph: FactorGraph2D, lam: torch.Tensor):
+            return _solve(graph, lam)
+
+        return solve
+
+    def init_state(graph: FactorGraph2D):
+        fp.fused_mode(cfg, graph)      # raises for what is not ported
+        lam0 = torch.tensor(cfg.lambda_init, dtype=graph.poses.dtype,
+                            device=graph.device)
+        return (fp.fused_precond_from_graph(cfg, graph, lam0), 0)
+
+    def solve_stateful(graph: FactorGraph2D, lam: torch.Tensor, state):
+        pre, calls = state
+        # calls == 0 is excluded: init_state built at this graph and lambda
+        if refresh > 1 and calls % refresh == 0 and calls > 0:
+            pre = fp.fused_precond_from_graph(cfg, graph, lam)
+        return _solve(graph, lam, pre) + ((pre, calls + 1),)
+
+    solve_stateful.stateful = True
+    solve_stateful.init_state = init_state
+    return solve_stateful

@@ -9,7 +9,9 @@ Python loop in place of ``lax.while_loop``:
 * early stop after ``penalty_limit`` consecutive error increases (the old
   state is kept on that iteration);
 * convergence when ``||lr * dx|| < convergence_eps``;
-* with ``reject_worse_steps``, Levenberg-Marquardt step rejection.
+* with ``reject_worse_steps``, Levenberg-Marquardt step rejection;
+* a stateful solve (``pcg_precond_refresh != 1``) gets its carry from
+  ``solve.init_state(graph)`` and threads it through the iterations.
 
 All loop state stays on the graph's device; the loop reads the
 ``converged``/``diverged`` flags to the host once per iteration.
@@ -57,7 +59,8 @@ class GaussNewton:
             if self.config.solver != "schur":
                 raise NotImplementedError(
                     f"solver={self.config.solver!r}: only 'schur' is ported "
-                    "(dense: ROADMAP.md A.4; schur_grid: A.9; schur3d: A.10)"
+                    "(dense: ROADMAP.md A.4/A.15; schur_grid: A.9; "
+                    "schur3d: A.10)"
                 )
             from toyslam_torch.ops.schur import schur_linearize_solve
 
@@ -76,11 +79,14 @@ class GaussNewton:
             )
 
     def _prepare(self, graph: FactorGraph2D) -> FactorGraph2D:
-        """Attach the gather tables (host-side, once per graph structure)."""
+        """Attach the gather tables and, on large graphs, the band layout
+        (host-side, once per graph structure).  The band search is skipped
+        when the config pins the plain PCG loop, which never streams it."""
         if self._builtin_solver and graph.plan is None:
             from toyslam_torch.ops.gather_plan import attach_plan
 
-            graph = attach_plan(graph)
+            graph = attach_plan(
+                graph, want_band=self.config.pcg_backend != "xla")
         return graph
 
     def optimize(self, graph: FactorGraph2D) -> OptimizeResult:
@@ -95,7 +101,12 @@ class GaussNewton:
         graph = self._prepare(graph)
         lam_t = torch.tensor(cfg.lambda_init if lam is None else lam,
                              dtype=graph.poses.dtype, device=graph.device)
-        dx_p, dx_l, err, _ = self.solve(graph, lam_t)
+        if getattr(self.solve, "stateful", False):
+            # a single step builds and discards a preconditioner state
+            dx_p, dx_l, err, _, _ = self.solve(
+                graph, lam_t, self.solve.init_state(graph))
+        else:
+            dx_p, dx_l, err, _ = self.solve(graph, lam_t)
         poses = self.retract(graph.poses, dx_p * cfg.lr)
         landmarks = graph.landmarks + dx_l * cfg.lr
         return graph.with_state(poses, landmarks), err
@@ -117,10 +128,16 @@ def _run(cfg, solve, retract, error_fn, graph: FactorGraph2D) -> OptimizeResult:
     pcg_residuals = torch.full_like(errors, float("nan"))
     lambdas = torch.full_like(errors, float("nan"))
     it, converged, diverged = 0, False, False
+    # the carry of a stateful solve (the refreshed PCG preconditioner)
+    stateful = getattr(solve, "stateful", False)
+    sstate = solve.init_state(graph) if stateful else None
 
     while it < cfg.iterations and not converged and not diverged:
         g = graph.with_state(poses, landmarks)
-        dx_p, dx_l, err, stats = solve(g, lam)
+        if stateful:
+            dx_p, dx_l, err, stats, sstate = solve(g, lam, sstate)
+        else:
+            dx_p, dx_l, err, stats = solve(g, lam)
         step_p = dx_p * cfg.lr
         step_l = dx_l * cfg.lr
         dx_norm = torch.sqrt((step_p**2).sum() + (step_l**2).sum())
