@@ -12,8 +12,9 @@ Run from the root of a checkout.  Phases, each of which must pass:
    from the same state at (dp=3, Np=192, Mw=768, L=8), the same with L=0,
    the same with a coarse level (nc=3) and at Np=2048, each a fresh and a
    carried chunk — ``it`` and ``stop`` equal, x within 1e-4 of max|x|,
-   r_true and rr within 1e-4 of max|rhs| and ||rhs||^2 (see
-   compare_chunks) — and both timed;
+   r_true and rr within 1e-4 of max|rhs| and ||rhs||^2, and a second
+   launch from the same state giving the same bits (see compare_chunks) —
+   and both timed;
 3. the main path: the 150-pose seeded simulation, the graph build and
    ``GaussNewton(...).optimize`` on the card through B1, checked against
    the reference values of the JAX package (ATE 0.7552 within 2e-3,
@@ -21,7 +22,9 @@ Run from the root of a checkout.  Phases, each of which must pass:
    27524.9 at rtol 1e-3) with the launch counts;
 4. timing, fenced with torch.cuda.synchronize(): GN-iter/s as the median of
    5 rounds x 20 optimize() calls; the time of each layer of one GN
-   iteration; one chunk of B1 vs the plain version (CUDA events);
+   iteration; one chunk of B1 vs the plain version and its bound (CUDA
+   events), on a cluster of 8 and of 16 blocks, and B1's per-phase
+   clock64 split;
 5. a shape check at robot_steps=2000 (Np=2048): chi^2 decreases and the
    optimized ATE beats dead reckoning, through B1;
 6. the band kernel (B2) vs plain PyTorch on the card, a fresh and a
@@ -30,7 +33,8 @@ Run from the root of a checkout.  Phases, each of which must pass:
    layout and shapes (tile stack [39, 2, 3, 512, 512], one wide landmark,
    L=14, coarse nc=64) and a small one (K=3, wide columns, L=0); B2 and
    its plain version timed on the scale path's own iteration-0 operands
-   and on the small system;
+   and on the small system; B2's bound, its per-phase clock64 split and
+   the cost of one grid barrier alone (line ``band_phase_split``);
 7. the scale path: ``make_large_problem(10_000, 10_000, 6, seed=0)`` and
    ``GaussNewton(...).optimize`` with the JAX package's band-10k-cg160
    config on the card through B2 (B1 launched no time), checked against
@@ -40,8 +44,10 @@ Run from the root of a checkout.  Phases, each of which must pass:
 8. its timing: GN-iter/s as the median of 3 optimize() rounds, the ms of
    each layer, the host set-up seconds and the device time.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``, printed only when every phase passed.
+The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
+its path, largest difference from the plain version, ms, plain_ms,
+bound_ms, bound_by, library_ms); the last line is ``{"ok": true,
+"device": {...}}``, printed only when every phase passed.
 Without a CUDA device the script exits non-zero and prints no result.
 """
 
@@ -72,6 +78,9 @@ KERNELS = {
     },
 }
 REL_TOL = 1e-4
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM3 bytes/s and f32
+# FLOP/s outside the tensor cores
+PEAK_BYTES_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 ATE_REF, ATE_TOL = 0.7552, 2e-3
 ATE_DR_REF = 6.5673
 CHI2_FIRST, CHI2_FINAL = 228733.5, 27524.9
@@ -222,12 +231,16 @@ def compare_chunks(case, op, pre, rhs, chunk=16, maxit=200, tol=1e-6,
                    kernel="fused_pcg_chunk"):
     """Kernel vs plain version from the same state: a fresh first chunk
     (restart) and a second chunk carrying the recurrence (no restart).
+    Each kernel launch is repeated from the same state and must give the
+    same bits.
 
     ``x`` is compared at its own scale.  ``r_true = rhs - S x`` and ``rr``
     are compared at the scale of ``rhs`` and ``||rhs||^2``: near the f32
     floor ``r_true`` is rounding noise of that size, so its own scale
     would compare noise with noise.  Both readings are printed."""
     import torch
+
+    from toyslam_torch.ops import fused_pcg as fp
 
     ker_fn, ref_fn = chunk_fns(kernel)
     rhs2 = float((rhs * rhs).sum())
@@ -238,7 +251,10 @@ def compare_chunks(case, op, pre, rhs, chunk=16, maxit=200, tol=1e-6,
     for restart in (True, False):
         ref = ref_fn(op, pre, rhs, st, atol2, maxit, restart, chunk)
         ker = ker_fn(op, pre, rhs, st, atol2, maxit, restart, chunk)
+        again = ker_fn(op, pre, rhs, st, atol2, maxit, restart, chunk)
         torch.cuda.synchronize()
+        rerun_same = all(torch.equal(getattr(ker, f), getattr(again, f))
+                         for f in fp.ChunkState._fields)
         dx = float((ker.x - ref.x).abs().max())
         drt = float((ker.rt - ref.rt).abs().max())
         drr = abs(float(ker.rr) - float(ref.rr))
@@ -253,14 +269,16 @@ def compare_chunks(case, op, pre, rhs, chunk=16, maxit=200, tol=1e-6,
         }
         same = (int(ker.it) == int(ref.it)) and \
             (int(ker.stop) == int(ref.stop))
-        ok = same and all(e <= REL_TOL for e in errs.values()) and all(
+        ok = same and rerun_same and all(
+            e <= REL_TOL for e in errs.values()) and all(
             bool(torch.isfinite(t).all()) for t in (ker.x, ker.rt, ker.rr)
         )
         results.append({
             "case": case, "restart": restart, "ok": ok,
             "it": [int(ker.it), int(ref.it)],
             "stop": [int(ker.stop), int(ref.stop)],
-            "rel": errs, "rel_own_scale": own, "max_abs_err": max(dx, drt),
+            "rerun_identical": rerun_same, "rel": errs,
+            "rel_own_scale": own, "max_abs_err": max(dx, drt),
             "rr_over_rhs2": float(ref.rr) / rhs2,
         })
         st = ref
@@ -290,6 +308,37 @@ def phase_kernels(device):
     if bad:
         raise AssertionError(f"kernel disagrees with plain version: {bad}")
     return max(r["max_abs_err"] for r in out)
+
+
+def chunk_bound(op, pre, rhs, chunk, restart=True):
+    """The least time the card could take for one chunk launch on these
+    operands: every input read once and every output written once at the
+    HBM rate, or the f32 operations of the plain version (chunk + 1
+    matvecs, one preconditioner apply per iteration plus the restart's,
+    dot products) at the f32 peak, whichever is larger."""
+    import torch
+
+    from toyslam_torch.ops import fused_pcg as fp
+
+    dp, n = rhs.shape
+    tensors = [t for t in (*op, *pre, rhs) if torch.is_tensor(t)]
+    vec = rhs.numel() * rhs.element_size()
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) \
+        + 8 * vec + 32   # x r p rt in and out, four scalars each way
+    if isinstance(op, fp.BandOperator):
+        mv = 4 * op.tiles.numel() + (0 if op.u is None else 4 * op.u.numel())
+    else:
+        mv = 4 * op.u.numel()
+    mv += 6 * dp * dp * n
+    pc = (4 * pre.alphas.shape[0] + 2) * dp * dp * n
+    if pre.cinv is not None:
+        nc = pre.rmat.shape[1]
+        pc += 4 * dp * n * nc + 2 * (dp * nc) ** 2
+    flops = (chunk + 1) * (mv + 10 * dp * n) + (chunk + int(restart)) * pc
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
 
 
 # --- phase 3: the main path ---------------------------------------------
@@ -450,6 +499,45 @@ def chunk_times(op, pre, rhs, chunk=16, kernel="fused_pcg_chunk", reps=50):
     return {"kernel": [k1, k2], "plain": [p1, p2]}
 
 
+def cluster_times(op, pre, rhs, chunk, reps=50):
+    """One fresh B1 chunk on a cluster of 8 (portable) and of 16 blocks, in
+    turns (8, 16, 16, 8), CUDA events."""
+    from toyslam_torch.ops import fused_pcg as fp
+
+    st = fresh_state(rhs)
+    atol2 = ((1e-6 ** 2) * (rhs * rhs).sum()).reshape(1)
+    ms = {8: [], 16: []}
+    for c in (8, 16, 16, 8):
+        ms[c].append(cuda_ms(lambda: fp._launch(
+            op, pre, rhs, st, atol2, 200, True, chunk, cluster=c), reps))
+    return {f"cluster{c}": v for c, v in ms.items()} | {
+        "resident_at_16": fp.b1_schedule(rhs.device.index or 0, *rhs.shape,
+                                         op.u.shape[-1], 0).resident}
+
+
+def b1_phase_split(op, pre, rhs, chunk, chunk_ms):
+    """Where one B1 chunk's time goes: block 0's clock64 cycles per phase
+    kind (``B1_TIMERS``: its V^T v columns, its partial V urow, the cluster
+    exchange with its two cluster barriers, the preconditioner, the rest)
+    as shares of the
+    launch, scaled by the measured chunk time."""
+    import torch
+
+    from toyslam_torch.ops import fused_pcg as fp
+
+    timing = torch.zeros(len(fp.B1_TIMERS), dtype=torch.int64,
+                         device=rhs.device)
+    st = fresh_state(rhs)
+    atol2 = ((1e-6 ** 2) * (rhs * rhs).sum()).reshape(1)
+    fp._launch(op, pre, rhs, st, atol2, 200, True, chunk, timing=timing)
+    torch.cuda.synchronize()
+    cycles = dict(zip(fp.B1_TIMERS, timing.tolist()))
+    total = sum(cycles.values())
+    return {"cycles": cycles,
+            "share": {k: v / total for k, v in cycles.items()},
+            "ms": {k: chunk_ms * v / total for k, v in cycles.items()}}
+
+
 def phase_timing(gn, gdev):
     import torch
 
@@ -472,8 +560,16 @@ def phase_timing(gn, gdev):
     out["layer_ms"] = {name: cuda_ms(fn, 20) for name, fn in layers}
     out["pcg_iters_iter0"] = int(state["res"].iterations)
 
+    chunk = gn.config.pcg_fused_chunk
     out["chunk_ms"] = chunk_times(state["op"], state["pre"], state["rhs2"],
-                                  gn.config.pcg_fused_chunk)
+                                  chunk)
+    out["chunk_bound"] = chunk_bound(state["op"], state["pre"],
+                                     state["rhs2"], chunk)
+    out["cluster_ms"] = cluster_times(state["op"], state["pre"],
+                                      state["rhs2"], chunk)
+    out["phase_split"] = b1_phase_split(
+        state["op"], state["pre"], state["rhs2"], chunk,
+        statistics.mean(out["chunk_ms"]["kernel"]))
     out["device"] = device_time(gn, gdev, out["optimize_s_median"])
     return out
 
@@ -809,6 +905,11 @@ def phase_band_kernels(gn, gdev):
     log("band_kernel_shapes " + json.dumps(shapes))
     times = {"scale10k_L14_coarse64": chunk_times(
         op, pre, rhs2, chunk, kernel="band_fused_pcg_chunk", reps=10)}
+    bound = chunk_bound(op, pre, rhs2, chunk)
+    split = band_phase_split(op, pre, rhs2, chunk,
+                             statistics.mean(
+                                 times["scale10k_L14_coarse64"]["kernel"]))
+    log("band_phase_split " + json.dumps(split))
     # held against the plain version on systems of the same shapes built
     # so that CG is far from converged after a chunk: the scale path's
     # own system carries the 1e6 gauge prior of pose 0, where r_true is
@@ -841,7 +942,51 @@ def phase_band_kernels(gn, gdev):
         raise AssertionError(
             f"band kernel disagrees with plain version: {bad}")
     return {"max_abs": max(r["max_abs_err"] for r in out),
-            "chunk_ms": times["scale10k_L14_coarse64"]}
+            "chunk_ms": times["scale10k_L14_coarse64"], "bound": bound,
+            "split": split}
+
+
+def band_phase_split(op, pre, rhs, chunk, chunk_ms, probe_iters=2000):
+    """Where one B2 chunk's time goes: the blocks' mean clock64 cycles (and
+    their min and max) per kind (``BAND_TIMERS``: the slab phase's steps,
+    the gather, preconditioner work, grid barriers including the wait for
+    the slowest block, the rest) as shares of the launch, scaled by the
+    measured chunk time; and the cost of one grid barrier alone on the same
+    grid (``probe_iters`` barriers, CUDA events)."""
+    import torch
+
+    from toyslam_torch.ops import fused_pcg as fp
+
+    dev = rhs.device
+    grid, plan = fp.band_schedule(dev.index or 0, *op.tiles.shape[:2],
+                                  rhs.shape[0], *op.tiles.shape[3:],
+                                  0 if op.u is None else op.u.shape[1])
+    timing = torch.zeros((grid, len(fp.BAND_TIMERS)), dtype=torch.int64,
+                         device=dev)
+    st = fresh_state(rhs)
+    atol2 = ((1e-6 ** 2) * (rhs * rhs).sum()).reshape(1)
+    fp._band_launch(op, pre, rhs, st, atol2, 200, True, chunk, timing=timing)
+    torch.cuda.synchronize()
+    per_block = timing.double()
+    mean = per_block.mean(0).tolist()
+    cycles = dict(zip(fp.BAND_TIMERS, mean))
+    spread = {k: [float(per_block[:, i].min()), float(per_block[:, i].max())]
+              for i, k in enumerate(fp.BAND_TIMERS)}
+    total = sum(cycles.values())
+    sync_ms = cuda_ms(lambda: fp.band_grid_sync_probe(dev, probe_iters), 3)
+    # the kernel's precond_phases: two PCR levels per phase
+    nph = max(-(-pre.alphas.shape[0] // 2), 4 if pre.cinv is not None else 1)
+    return {
+        "grid": grid, "slab_rows": plan.rows, "slab_cols": plan.cols,
+        "slabs_per_chunk": plan.slabs_per_chunk,
+        "slabs_per_block": plan.slabs_per_block,
+        "smem_bytes": plan.smem_bytes,
+        "grid_sync_us": sync_ms / probe_iters * 1e3,
+        "barriers_per_trip": 3 + nph,
+        "cycles": cycles, "cycles_min_max_over_blocks": spread,
+        "share": {k: v / total for k, v in cycles.items()},
+        "ms": {k: chunk_ms * v / total for k, v in cycles.items()},
+    }
 
 
 def phase_scale_timing(gn, gdev):
@@ -944,12 +1089,16 @@ def main() -> int:
         print(f"chip_smoke.py: failed phases: {failures}", file=sys.stderr)
         return 1
 
+    # library_ms: no single PyTorch call computes a PCG chunk
     b1 = dict(KERNELS["fused_pcg_chunk"])
     b1.update(
         launches=state["main"]["kernel_launches"]["fused_pcg_chunk"],
         max_abs_err=state["max_abs"],
         ms=statistics.mean(state["timing"]["chunk_ms"]["kernel"]),
         plain_ms=statistics.mean(state["timing"]["chunk_ms"]["plain"]),
+        bound_ms=state["timing"]["chunk_bound"]["bound_ms"],
+        bound_by=state["timing"]["chunk_bound"]["bound_by"],
+        library_ms=None,
     )
     b2 = dict(KERNELS["band_fused_pcg_chunk"])
     b2.update(
@@ -957,6 +1106,9 @@ def main() -> int:
         max_abs_err=state["band"]["max_abs"],
         ms=statistics.mean(state["band"]["chunk_ms"]["kernel"]),
         plain_ms=statistics.mean(state["band"]["chunk_ms"]["plain"]),
+        bound_ms=state["band"]["bound"]["bound_ms"],
+        bound_by=state["band"]["bound"]["bound_by"],
+        library_ms=None,
     )
     log(json.dumps({"kernels": [b1, b2]}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
 
 
@@ -20,7 +22,7 @@ def _python(*args, timeout=240):
 
 def test_cli_run_prints_metrics_json():
     proc = _python("-m", "toyslam_torch", "run", "--steps", "40",
-                   "--iterations", "3")
+                   "--iterations", "3", "--device", "cpu")
     assert proc.returncode == 0, proc.stderr
     m = json.loads(proc.stdout.strip().splitlines()[-1])
     for key in ("cmd", "backend", "poses", "landmarks", "ate_rmse",
@@ -35,13 +37,23 @@ def test_cli_run_prints_metrics_json():
     assert m["kernel_launches"] == 0
 
 
-def test_cli_refuses_a_missing_gpu():
+@pytest.mark.parametrize("device_args", [["--device", "cuda"], []])
+def test_cli_refuses_a_missing_gpu(device_args):
+    """``--device cuda``, and the default, exit 2 without a GPU: no CPU
+    fallback."""
+    args = ["run", "--steps", "20", *device_args]
     code = ("import torch, sys; from toyslam_torch.app import main; "
             "torch.cuda.is_available = lambda: False; "
-            "sys.exit(main(['run', '--steps', '20', '--device', 'cuda']))")
+            f"sys.exit(main({args!r}))")
     proc = _python("-c", code)
     assert proc.returncode == 2 and "no CUDA device" in proc.stderr
     assert proc.stdout == ""
+
+
+def test_cli_runs_on_the_card_by_default():
+    from toyslam_torch.app import build_parser
+
+    assert build_parser().parse_args(["run"]).device == "cuda"
 
 
 def test_port_imports_no_jax():

@@ -101,10 +101,134 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_resident_shared_memory_formula():
-    """The wrapper's budget formula: seven [dp, Np] vectors, the V^T x row,
-    the coarse scratch and 66 reduction slots, in bytes."""
-    assert fp.chunk_smem_bytes(3, 192, 768, 0) == 4 * (7 * 576 + 768 + 66)
+    """The wrapper's budget formula per block of the cluster: seven [dp, Np]
+    vectors, the block's ceil(Mw / 16) V^T x columns, the 576 float4
+    column-sum scratch, the coarse scratch and 38 reduction slots, plus the
+    block's U slice when it stays in shared memory, in bytes."""
+    streamed = 4 * (7 * 576 + 48 + 4 * 576 + 38)
+    assert fp.chunk_smem_bytes(3, 192, 768, 0) == streamed
+    assert fp.chunk_smem_bytes(3, 192, 768, 0, resident=True) == \
+        streamed + 4 * 576 * 52          # rows of 13 float4s (odd)
+    assert fp.chunk_smem_bytes(3, 192, 768, 3, cluster=8) == \
+        4 * (7 * 576 + 96 + 4 * 576 + 18 + 38)
     assert fp.chunk_smem_bytes(3, 2048, 768, 0) <= fp.SMEM_BUDGET_BYTES
+
+
+def test_band_shared_memory_formula():
+    """A slab of all the chunk's rows by `cols` columns, the state values of
+    its rows, t over its columns, the 256 float4 combination slots, u^T v
+    and 64 reduction slots, in bytes."""
+    assert fp.band_smem_bytes(3072, 16, 2) == \
+        4 * (3072 * 16 + 3072 + 16 + 1024 + 4 + 64)
+    assert fp.band_smem_bytes(48, 128, 0) == \
+        4 * (48 * 128 + 48 + 128 + 1024 + 0 + 64)
+
+
+def _three_configs():
+    """The graphs of the main path (150 poses), the shape check (2000
+    poses) and the scale path (10k poses), with their optimizer configs."""
+    from toyslam_torch.sim import synthetic
+
+    out = {}
+    for steps in (150, 2000):
+        cfg = SlamConfig(sim=SimConfig(robot_steps=steps, seed=0),
+                         optimizer=OptimizerConfig(solver="schur",
+                                                   pcg_precond="tridiag"))
+        g = attach_plan(frontend.build_graph(frontend.simulate(cfg.sim),
+                                             cfg)[0])
+        out[steps] = (cfg.optimizer, g)
+    g = attach_plan(synthetic.make_large_problem(
+        num_poses=10_000, num_landmarks=10_000, obs_per_pose=6, seed=0)[0])
+    out[10_000] = (OptimizerConfig(
+        solver="schur", exact_odom_jacobians=True,
+        pcg_precond="tridiag+coarse", pcg_coarse_group=160), g)
+    return out
+
+
+@pytest.fixture(scope="module")
+def three_configs():
+    return _three_configs()
+
+
+@pytest.mark.parametrize("poses,mode,np_,resident", [
+    (150, "resident", 192, True),
+    (2000, "resident", 2048, False),
+    (10_000, "band", 10_240, None),
+])
+def test_kernel_layouts_at_the_three_configs(three_configs, poses, mode,
+                                              np_, resident):
+    """The gate's pick and the host-side layout each kernel would launch
+    with on an H100 (227 KB of shared memory per block, 132 SMs): B1's
+    cluster split (U in shared memory at 150 poses, streamed from L2 at
+    2000), B2's slab schedule and workspace at 10k poses."""
+    cfg, g = three_configs[poses]
+    assert g.num_poses == np_
+    assert fp.fused_mode(cfg, g) == mode
+    if mode == "resident":
+        mw = 2 * g.num_landmarks
+        assert mw == 768
+        lay = fp.b1_layout(3, np_, mw, 0, fp.SMEM_BUDGET_BYTES)
+        assert (lay.cluster, lay.cols_per_block) == (16, 48)
+        assert lay.resident is resident
+        assert lay.smem_bytes == fp.chunk_smem_bytes(3, np_, mw, 0,
+                                                     resident=resident)
+        assert lay.smem_bytes <= fp.SMEM_BUDGET_BYTES
+        return
+    band = g.plan.band
+    b_dl, mw = band.chunk_b * band.dl, band.n_wide * band.dl
+    assert (band.n_chunks, band.k_windows, band.w_row, b_dl, mw) == \
+        (39, 2, 512, 512, 2)
+    plan = fp.band_slab_plan(band.n_chunks, band.k_windows, 3, band.w_row,
+                             b_dl, mw, fp.SMEM_BUDGET_BYTES, fp.H100_SMS)
+    # 3072 rows per chunk: 16 of the 512 columns fit with all the rows (32
+    # do not), so 32 slabs per chunk, 1248 in all, at most 10 per block
+    assert plan == fp.BandSlabPlan(3072, 16, 32, 10,
+                                   fp.band_smem_bytes(3072, 16, 2))
+    assert plan.smem_bytes <= fp.SMEM_BUDGET_BYTES < \
+        fp.band_smem_bytes(3072, 32, 2)
+    assert plan.slabs_per_chunk * plan.cols == b_dl
+    assert plan.slabs_per_block == -(-39 * 32 // 132)
+    nc = 10_240 // 160
+    assert fp.band_workspace_floats(3, np_, 39, plan, b_dl, mw, nc, 132) == (
+        7 * 3 * np_ + 39 * 3072 + 32 * 39 * 3072 + 10 * 2 + 132 * 3 * nc
+        + 2 * 3 * nc + 2 * 132 * 4)
+
+
+def test_band_slab_plan_adapts_to_the_card():
+    """The slab width follows the shared memory the card offers; a chunk
+    too tall for even 4 columns, or with a row count the 16-byte copies
+    cannot take, is refused."""
+    big = fp.band_slab_plan(39, 2, 3, 512, 512, 2, 232_448, 132)
+    small = fp.band_slab_plan(39, 2, 3, 512, 512, 2, 166_912, 132)
+    assert (small.cols, small.slabs_per_chunk) == (8, 64)
+    assert small.smem_bytes <= 166_912 < fp.band_smem_bytes(3072, 16, 2)
+    assert big.cols == 2 * small.cols
+    whole = fp.band_slab_plan(1, 1, 3, 16, 128, 0, 232_448, 4)
+    assert (whole.cols, whole.slabs_per_chunk) == (128, 1)
+    many = fp.band_slab_plan(60, 2, 3, 256, 128, 2, 232_448, 132)
+    assert (many.cols, many.slabs_per_block) == (32, 2)
+    with pytest.raises(ValueError, match="does not fit"):
+        fp.band_slab_plan(39, 2, 3, 16_384, 512, 2, 232_448, 132)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fp.band_slab_plan(39, 1, 3, 5, 512, 2, 232_448, 132)
+
+
+def test_slab_major_stack_and_its_cache():
+    """The band wrapper's slab-major copy: slab (c, s) is rows x cols of
+    chunk c's columns s*cols ..., contiguous; it is made once per stack and
+    made again once the stack is written to."""
+    tiles = torch.arange(2 * 2 * 3 * 4 * 16, dtype=torch.float32).reshape(
+        2, 2, 3, 4, 16)
+    slabs = fp._slab_major(tiles, 4)
+    assert slabs.shape == (2, 4, 24, 4) and slabs.is_contiguous()
+    rows = tiles.reshape(2, 24, 16)
+    for c in range(2):
+        for sl in range(4):
+            assert torch.equal(slabs[c, sl], rows[c, :, 4 * sl:4 * sl + 4])
+    assert fp._slab_major(tiles, 4) is slabs
+    tiles.add_(1.0)
+    again = fp._slab_major(tiles, 4)
+    assert again is not slabs and torch.equal(again, slabs + 1.0)
 
 
 # --- on the GPU ---------------------------------------------------------
@@ -170,13 +294,18 @@ def test_kernel_refuses_more_shared_memory_than_the_card_has(cuda):
                            atol2, 50, True, 4)
 
 
-def _tiny_band(np_=300, seed=0):
-    """A small SPD band system (K=2 windows per chunk, one past Np, two
-    wide columns), block-Jacobi preconditioned."""
+def _tiny_band(np_=300, seed=0, n_chunks=2, w_row=128, b_dl=128):
+    """A small SPD band system (K=2 windows per chunk, two wide columns),
+    block-Jacobi preconditioned.  Two chunks: windows at 0, 128, 128, 256
+    (one past Np); more: windows at random multiples of 128."""
     from toyslam_torch.ops import band_plan
 
     rng = np.random.default_rng(seed)
-    win_off = np.array([[0, 128], [128, 256]], np.int32)
+    if n_chunks == 2:
+        win_off = np.array([[0, 128], [128, 256]], np.int32)
+    else:
+        win_off = rng.choice(np.arange(0, np_, 128),
+                             size=(n_chunks, 2)).astype(np.int32)
 
     def f32(a):
         return torch.tensor(np.asarray(a), dtype=torch.float32)
@@ -185,10 +314,12 @@ def _tiny_band(np_=300, seed=0):
     up = torch.zeros(3, 3, np_)
     up[:, :, :-1] = -0.5 * torch.eye(3)[..., None]
     op = fp.BandOperator(
-        tiles=f32(rng.normal(0.0, 0.01, (2, 2, 3, 128, 128))),
+        tiles=f32(rng.normal(0.0, 0.01 * (128 / b_dl) ** 0.5
+                             * (2 / n_chunks) ** 0.5,
+                             (n_chunks, 2, 3, w_row, b_dl))),
         win_off=torch.as_tensor(win_off),
         cover=torch.as_tensor(
-            band_plan._window_cover(win_off, np_, 128, 3).astype(np.int32)),
+            band_plan._window_cover(win_off, np_, w_row, 3).astype(np.int32)),
         u=f32(rng.normal(0.0, 0.02, (3, 2, np_))),
         tdiag=(4.0 * eye).contiguous(), tupper=up,
         tlower=torch.roll(up.transpose(0, 1), 1, dims=-1).contiguous())
@@ -198,9 +329,15 @@ def _tiny_band(np_=300, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("restart", [True, False])
-def test_band_kernel_matches_plain_version(cuda, restart):
-    op, pre, rhs = _tiny_band()
+@pytest.mark.parametrize("restart,chunks", [(True, 2), (False, 2),
+                                            (True, 60), (False, 60)])
+def test_band_kernel_matches_plain_version(cuda, restart, chunks):
+    """Two chunks: a few slabs; sixty: 60 chunks x 2 windows x 3
+    components x 256 rows cut into slabs of 32 columns, more slabs than
+    blocks, so blocks walk several slabs and copy the next while working."""
+    op, pre, rhs = _tiny_band(np_=1000 if chunks > 2 else 300,
+                              n_chunks=chunks,
+                              w_row=256 if chunks > 2 else 128)
     op, pre, rhs = _to(op, cuda), _to(pre, cuda), rhs.to(cuda)
     st, atol2 = _start(rhs)
     if not restart:
@@ -214,6 +351,38 @@ def test_band_kernel_matches_plain_version(cuda, restart):
     assert float((ker.x - ref.x).abs().max() / ref.x.abs().max()) <= 1e-4
     assert float((ker.rt - ref.rt).abs().max()) <= \
         1e-4 * float(rhs.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_kernel_matches_plain_version_at_both_cluster_sizes(cuda, cluster):
+    """The portable (8) and the non-portable (16) cluster: U streamed from
+    L2 at 8 (the slice does not fit beside the vectors), resident at 16."""
+    op, pre, rhs = _tiny_system(np_=192, mw=768, nc=3)
+    op, pre, rhs = _to(op, cuda), _to(pre, cuda), rhs.to(cuda)
+    st, atol2 = _start(rhs)
+    ker = fp._launch(op, pre, rhs, st, atol2, 200, True, 16, cluster=cluster)
+    ref = fp.fused_pcg_chunk_ref(op, pre, rhs, st, atol2, 200, True, 16)
+    assert int(ker.it) == int(ref.it)
+    assert float((ker.x - ref.x).abs().max() / ref.x.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["resident", "band"])
+def test_kernel_repeats_bit_for_bit(cuda, kernel):
+    """Two launches from the same state give the same bits."""
+    if kernel == "resident":
+        op, pre, rhs = _tiny_system(np_=192, mw=768, nc=3)
+        fn = fp.fused_pcg_chunk
+    else:
+        op, pre, rhs = _tiny_band(np_=1000, n_chunks=60, w_row=256)
+        fn = fp.band_fused_pcg_chunk
+    op, pre, rhs = _to(op, cuda), _to(pre, cuda), rhs.to(cuda)
+    st, atol2 = _start(rhs)
+    a = fn(op, pre, rhs, st, atol2, 200, True, 8)
+    b = fn(op, pre, rhs, st, atol2, 200, True, 8)
+    for name in fp.ChunkState._fields:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
 
 
 @pytest.mark.cuda

@@ -3,7 +3,8 @@
 ``python -m toyslam_torch run [--steps 150 --iterations 10 --lr 0.2
 --seed 0 --device cuda]`` simulates the scripted trajectory, builds the
 factor graph, optimizes it with the Schur/fused-PCG Gauss-Newton on the
-given device and prints one JSON metrics line to stdout (the same keys as
+given device (the GPU by default; ``--device cpu`` runs the kernels' plain
+PyTorch versions) and prints one JSON metrics line to stdout (the same keys as
 ``toyslam_tpu``'s ``run``, plus the device and the kernel launch count).
 """
 
@@ -91,8 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--iterations", type=int, default=10)
     r.add_argument("--lr", type=float, default=0.2)
     r.add_argument("--seed", type=int, default=0)
-    r.add_argument("--device", default="cpu",
-                   help="torch device to optimize on, e.g. cpu or cuda")
+    r.add_argument("--device", default="cuda",
+                   help="torch device to optimize on: cuda (the default, "
+                        "through the CUDA kernels) or cpu (their plain "
+                        "PyTorch versions)")
     r.set_defaults(fn=cmd_run)
     return p
 

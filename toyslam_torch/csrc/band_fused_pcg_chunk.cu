@@ -1,6 +1,6 @@
 // One chunk of preconditioned conjugate gradients on the damped reduced pose
 // system S = T - V V^T of a large graph, with V streamed from the banded tile
-// stack, on a persistent cooperative grid.
+// stack, on a persistent cooperative grid of one block per SM.
 //
 // Replaces toyslam_tpu/ops/fused_pcg.py::_make_band_kernel (the streamed band
 // fused-PCG Pallas kernel, launched by band_fused_pcg).  One launch keeps
@@ -24,25 +24,46 @@
 //     rmat cinv rmat^T.  All f32 (the reference keeps the PCR planes in
 //     bf16 to fit its on-chip memory; there is no such limit here).
 //
-// What bounds it on an H100: streaming the tile stack.  At the 10k-pose
-// graph the stack is [39, 2, 3, 512, 512] f32 = 245 MB, five times the
-// 50 MB L2, and every matvec reads it from device memory.  This first
-// version reads it twice per matvec (once for the t-pass, once for the
-// w-pass; the w-pass walks the chunks in reverse so the last chunks of the
-// t-pass are still in L2): about 0.45 GB per matvec, ~0.15 ms at the card's
-// 3.35 TB/s.  One thread block on one SM streams about 80 GB/s, so the design
-// is a persistent cooperative grid, up to 4 blocks on every SM, that splits
-// each pass into many independent items (chunk x window x component x
-// column group) and synchronizes the grid between the phases of a CG
-// iteration: t-pass, w-pass, gather + T + wide columns, update, each PCR
-// level, preconditioner end.  Later work: one pass over the stack with the
-// chunk's tiles held in shared memory or L2, TMA loads, fewer grid barriers.
+// What bounds it on an H100: streaming the tile stack from device memory.
+// At the 10k-pose graph the stack is [39, 2, 3, 512, 512] f32 = 245 MB, five
+// times the 50 MB L2, so every matvec must read it from HBM once: 73 us at
+// the card's 3.35 TB/s.
 //
-// Determinism: no atomics.  Every sum has a fixed order: per-item partials
-// (t per (chunk, window, component), w per window row), then a per-pose sum
-// over the covering windows in (chunk, window) order from a static table
-// (`cover`, built once per graph structure), and the dot products as
-// per-block partials summed in block order by every block.
+// How it reads the stack once per matvec, with no wait between blocks.  A
+// chunk's rows (k, a, w) -- `rows` = K*DP*Wrow of them -- are cut by
+// COLUMNS into slabs of `cols` columns and all the rows (ops/fused_pcg.py::
+// band_slab_plan picks the widest that fits in shared memory: 3072 x 16
+// floats = 196 KB at 10k poses).  t restricted to a slab's columns needs
+// only that slab, and so does the slab's part of the w-pass, rows . t over
+// its columns.  The wrapper hands the kernel the stack re-laid slab-major
+// (once per stack), so a slab is one contiguous run.  Block b takes slabs
+// b, b + grid, ... and for each
+//   1. copies it into shared memory with 16-byte asynchronous copies
+//      (cp.async, bypassing L1) in four row parts, each its own group, the
+//      parts issued while the previous slab's w-pass frees them;
+//   2. accumulates the partial t over each part as it lands;
+//   3. does the w-pass from shared memory into its own slot of wpart
+//      [n_chunks * rows, slabs per chunk].
+// The gather sums a window row's slots (contiguous) in slab order.  The
+// matvec input at the window rows (x, or this trip's p) is laid out once
+// per trip in xwin, behind one grid barrier, and copied with each slab.
+//
+// Grid barriers per CG trip: xwin | slabs | gather (ap, p.ap) | update +
+// PCR levels 0-1 + the blocks' coarse restriction shares | one per further
+// pair of PCR levels (the shares' sum beside the first, the coarse solve
+// beside the second) | the preconditioner end (z, r.z, r.r) -- 10 at
+// L=14.  The p update is folded into the next trip's first phase (p is
+// double buffered), the x/r update into the first preconditioner phase (r
+// is double buffered; level 0 recomputes r at its neighbours), and every
+// per-pose phase gives a block the same poses, so the last PCR level's
+// output and the new r are read back only by the block that wrote them.
+//
+// Determinism: no atomics.  Every sum has a fixed order: t over a slab's
+// rows, w per window row and slab, a per-pose sum over the covering windows
+// in (chunk, window) order from a static table (`cover`, built once per
+// graph structure) and over the slabs in order, and the dot products as
+// per-block partials summed in block order by every block.  Runs repeat bit
+// for bit at one grid size.
 //
 // Built with nvcc for sm_90a, WITHOUT --use_fast_math: the breakdown test
 // needs isfinite() to see NaN/inf, and alpha/beta need IEEE division.
@@ -50,6 +71,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace cg = cooperative_groups;
 
@@ -57,18 +79,19 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kColGroup = 128;   // t-pass columns per item (2 row halves)
-constexpr int kRowGroup = 128;   // w-pass window rows per item
-constexpr int kWideSeg = 1024;   // poses per wide-column partial
-constexpr int kMaxBlocksPerSM = 4;
-constexpr int kPartialSlots = 4; // floats per block in a partial-sum buffer
+constexpr int kParts = 4;         // row parts of a slab, one copy group each
+constexpr int kWideSeg = 1024;    // poses per wide-column partial
+constexpr int kPartialSlots = 4;  // floats per block in a partial-sum buffer
+constexpr int kRedFloats = 64;
+constexpr int kTimers = 9;        // see the enum below Timer
 
-constexpr int kNumDims = 14;
-constexpr int kNumPtrs = 30;
+constexpr int kNumDims = 15;
+constexpr int kNumPtrs = 31;
 
 struct Params {
   int np, n_chunks, k_win, w_row, b_dl, mw, nlevels, nc, cover_cap;
   int chunk_iters, maxit, restart;
+  int rows, cols, spc;   // rows per chunk (K*DP*Wrow), columns per slab, slabs per chunk
   const float* atol2;
   const int* it_in;
   const float* rz_in;
@@ -78,7 +101,7 @@ struct Params {
   const float* r_in;
   const float* p_in;
   const float* rt_in;
-  const float* tiles;    // [n_chunks, K, DP, Wrow, B*dl]
+  const float* tiles;    // slab-major: [n_chunks, B*dl / cols, K*DP*Wrow, cols]
   const int* win_off;    // [n_chunks, K]
   const int* cover;      // [Np, cap] wpart offsets (component 0), -1 pads
   const float* u;        // [DP, Mw, Np] or null
@@ -90,7 +113,7 @@ struct Params {
   const float* binv;     // [DP, DP, Np]
   const float* cinv;     // [DP, DP, nc, nc] or null
   const float* rmat;     // [Np, nc] or null
-  // outputs; x, r, p are also the working state
+  // outputs; x and p are also working state
   float* x;
   float* r;
   float* p;
@@ -99,41 +122,50 @@ struct Params {
   float* rz_out;
   int* stop_out;
   float* rr_out;
-  // workspace (written and read inside the launch: plain loads, never the
-  // read-only cache)
+  long long* timing;     // [grid, kTimers] clock64 sums per block, or null
+  // workspace (written and read inside the launch: never the read-only
+  // cache)
   float* ap;        // [DP, Np]
-  float* z;         // [DP, Np]
-  float* ta;        // [DP, Np] PCR ping-pong
+  float* z;
+  float* ta;        // PCR ping-pong
   float* tb;
-  float* tpart;     // [n_chunks, K, DP, B*dl] t-pass partials
-  float* wpart;     // [n_chunks, K, DP, Wrow] w-pass rows
+  float* ra;        // r ping-pong
+  float* rb;
+  float* pb;        // p ping-pong partner of `p`
+  float* xwin;      // [n_chunks, rows] the matvec input at the window rows
+  float* wpart;     // [n_chunks, rows, spc] w-pass rows per slab
   float* widepart;  // [n_wseg, Mw]
-  float* urow;      // [Mw]
+  float* rcpart;    // [grid, DP, nc] per-block restriction shares
   float* rc;        // [DP, nc]
   float* za;        // [DP, nc]
   float* partials;  // [2, grid, kPartialSlots]
 };
 
 struct Layout {
-  size_t ap, z, ta, tb, tpart, wpart, widepart, urow, rc, za, partials, total;
+  size_t ap, z, ta, tb, ra, rb, pb, xwin, wpart, widepart, rcpart, rc, za,
+      partials, total;
 };
 
 __host__ __device__ inline int n_wseg(int np) { return (np + kWideSeg - 1) / kWideSeg; }
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
-Layout layout(int dp, int np, int n_chunks, int k_win, int w_row, int b_dl,
-              int mw, int nc, int grid) {
+Layout layout(int dp, int np, int n_chunks, int rows, int spc, int mw,
+              int nc, int grid) {
   Layout L;
   const size_t n = (size_t)dp * np;
-  const size_t nck = (size_t)n_chunks * k_win * dp;
   size_t o = 0;
   L.ap = o; o += n;
   L.z = o; o += n;
   L.ta = o; o += n;
   L.tb = o; o += n;
-  L.tpart = o; o += nck * b_dl;
-  L.wpart = o; o += nck * w_row;
+  L.ra = o; o += n;
+  L.rb = o; o += n;
+  L.pb = o; o += n;
+  o = (o + 3) & ~(size_t)3;   // 16-byte copies out of xwin
+  L.xwin = o; o += (size_t)n_chunks * rows;
+  L.wpart = o; o += (size_t)spc * n_chunks * rows;
   L.widepart = o; o += (size_t)n_wseg(np) * mw;
-  L.urow = o; o += mw;
+  L.rcpart = o; o += (size_t)grid * dp * nc;
   L.rc = o; o += (size_t)dp * nc;
   L.za = o; o += (size_t)dp * nc;
   L.partials = o; o += (size_t)2 * grid * kPartialSlots;
@@ -141,10 +173,60 @@ Layout layout(int dp, int np, int n_chunks, int k_win, int w_row, int b_dl,
   return L;
 }
 
-size_t smem_bytes(int w_row, int b_dl) {
-  const int row = w_row > b_dl ? w_row : b_dl;
-  return sizeof(float) * ((size_t)row + kThreads + 64);
+// Shared memory of one block in floats: the slab [rows, cols], the state
+// values of its rows, t over its columns, the row-group combination buffer,
+// u^T v, reduction slots (mirrored by band_smem_bytes in ops/fused_pcg.py).
+struct Smem {
+  size_t slab, xs, ts, comb, urow, red, total;
+};
+
+__host__ __device__ inline Smem smem_layout(int rows, int cols, int mw) {
+  Smem S;
+  size_t o = 0;   // in floats
+  S.slab = o; o += (size_t)rows * cols;
+  S.xs = o; o += round4(rows);
+  S.ts = o; o += round4(cols);
+  S.comb = o; o += 4 * kThreads;
+  S.urow = o; o += round4(mw);
+  S.red = o; o += kRedFloats;
+  S.total = o * sizeof(float);
+  return S;
 }
+
+// --- PTX helpers: asynchronous 16-byte copies ------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's newest copy groups are in
+// flight (0 <= pending < kParts).
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+  }
+}
+
+__device__ __forceinline__ float4 f4add(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 f4fma(float s, float4 b, float4 a) {
+  return make_float4(fmaf(s, b.x, a.x), fmaf(s, b.y, a.y), fmaf(s, b.z, a.z),
+                     fmaf(s, b.w, a.w));
+}
+
+// --- reductions ---------------------------------------------------------------
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -177,8 +259,8 @@ __device__ void block_sum(float (&v)[NV], float* red) {
   __syncthreads();
 }
 
-// This block's share of NV grid-wide sums: its threads' values summed over
-// the block, stored in slot blockIdx.x of partial buffer `buf`.
+// This block's share of NV grid-wide sums, stored in slot blockIdx.x of
+// partial buffer `buf`.
 template <int NV>
 __device__ void put_partials(const Params& P, int buf, float (&v)[NV],
                              float* red) {
@@ -190,8 +272,8 @@ __device__ void put_partials(const Params& P, int buf, float (&v)[NV],
   }
 }
 
-// The NV grid-wide sums of partial buffer `buf` (after a grid barrier),
-// the same bits in every block: blocks in a fixed order.
+// The NV grid-wide sums of partial buffer `buf` (after a grid barrier), the
+// same bits in every block: blocks in a fixed order.
 template <int NV>
 __device__ void grid_totals(const Params& P, int buf, float (&v)[NV],
                             float* red) {
@@ -205,207 +287,336 @@ __device__ void grid_totals(const Params& P, int buf, float (&v)[NV],
   block_sum<NV>(v, red);
 }
 
+// Every per-element phase gives block b the poses [b*ppb, (b+1)*ppb) and
+// walks their (component, pose) elements with all its threads, the same way
+// in every phase: a block reads back only what it wrote itself, after a
+// block barrier.
+__device__ __forceinline__ int poses_per_block(int n) {
+  return (n + gridDim.x - 1) / gridDim.x;
+}
+
 __device__ __forceinline__ int grid_thread() {
   return blockIdx.x * blockDim.x + threadIdx.x;
 }
 __device__ __forceinline__ int grid_threads() { return gridDim.x * blockDim.x; }
 
-// --- matvec phases: out = S v ------------------------------------------------
+// The search direction of the current trip at element idx: p_in or the
+// previous p (mode 0), z (mode 1, restart), or z + beta p (mode 2).
+struct PDir {
+  const float* z;
+  const float* pold;
+  float beta;
+  int mode;
+  __device__ __forceinline__ float operator()(size_t idx) const {
+    if (mode == 0) return pold[idx];
+    if (mode == 1) return z[idx];
+    return fmaf(beta, pold[idx], z[idx]);
+  }
+};
 
-// Phase M1: t-pass partials tpart[c, k, a, j] = sum_w v[a, off + w] .
-// tiles[c, k, a, w, j] (zero past Np), and the wide-column partials.
+// r at element i after this trip's update (rsrc alone at chunk entry).
+struct RNew {
+  const float* r;
+  const float* ap;
+  float alpha;
+  __device__ __forceinline__ float operator()(size_t i) const {
+    return ap ? fmaf(-alpha, ap[i], r[i]) : r[i];
+  }
+};
+
+// clock64 sums of each block's thread 0 per phase kind (on when P.timing).
+struct Timer {
+  bool on;
+  long long t, acc[kTimers];
+  __device__ void lap(int k) {
+    if (on) {
+      const long long now = clock64();
+      acc[k] += now - t;
+      t = now;
+    }
+  }
+};
+// laying out xwin, waiting for slab copies, partial t, w-pass, wide
+// columns, gather, preconditioner work, grid barriers, the rest
+enum {
+  kTXwin = 0, kTCopyWait = 1, kTPartial = 2, kTWpass = 3, kTWide = 4,
+  kTGather = 5, kTPrecond = 6, kTSync = 7, kTOther = 8
+};
+
+__device__ __forceinline__ void gsync(cg::grid_group& grid, Timer& tm, int kind) {
+  tm.lap(kind);
+  grid.sync();
+  tm.lap(kTSync);
+}
+
+struct SmemPtrs {
+  float* slab;
+  float* xs;
+  float* ts;
+  float4* comb;
+  float* urow;
+  float* red;
+};
+
+// --- the matvec: out = S v ------------------------------------------------------
+
+__device__ __forceinline__ int part_rows(const Params& P) {
+  return (P.rows + kParts - 1) / kParts;
+}
+
+// All threads: start copying row part q of slab `slab` (one contiguous run
+// of the slab-major stack) into shared memory, as one copy group.
+__device__ void load_part(const Params& P, const SmemPtrs& S, int slab, int q) {
+  const int pr = part_rows(P);
+  const size_t f0 = (size_t)q * pr * P.cols;
+  const size_t f1 = (size_t)min(P.rows, (q + 1) * pr) * P.cols;
+  const float* base = P.tiles + (size_t)slab * P.rows * P.cols;
+  for (size_t f = f0 + 4 * threadIdx.x; f < f1; f += 4 * kThreads)
+    cp_async16(S.slab + f, base + f);
+  cp_async_commit();
+}
+
+// All threads: start copying the state values of slab `slab`'s chunk from
+// xwin, as one copy group.
+__device__ void load_xs(const Params& P, const SmemPtrs& S, int slab) {
+  const int c = slab / P.spc;
+  const float* src = P.xwin + (size_t)c * P.rows;
+  for (int i = threadIdx.x; i < P.rows / 4; i += kThreads)
+    cp_async16(S.xs + 4 * i, src + 4 * i);
+  cp_async_commit();
+}
+
+// Phase 1 of a trip: this trip's p into `pnew`, the matvec input v at the
+// window rows into xwin (grid barrier), then the slabs' t and w-pass (see
+// the header) and the wide-column partials of v.  The row parts of the
+// block's first slab were issued before the phase; with `prefetch` the
+// next trip's are issued at its end.
 template <int DP>
-__device__ void phase_tpass(const Params& P, const float* v, float* smem,
-                            float* red) {
-  const int n = P.np, wr = P.w_row, bdl = P.b_dl;
-  const int ncg = bdl / kColGroup;
-  const int n_tile_items = P.n_chunks * P.k_win * DP * ncg;
+__device__ void phase_slabs(const Params& P, cg::grid_group& grid,
+                            const PDir& pd, bool last, float* pnew,
+                            bool prefetch, const SmemPtrs& S, Timer& tm) {
+  const int n = P.np, tid = threadIdx.x;
+  const int ppb = poses_per_block(n), q0 = blockIdx.x * ppb;
+  for (int i = tid; i < DP * ppb; i += kThreads) {
+    const int a = i / ppb, q = q0 + i - a * ppb;
+    if (q < n) pnew[(size_t)a * n + q] = pd((size_t)a * n + q);
+  }
+  const float* xv = P.x;
+  auto v = [&](size_t i) { return last ? xv[i] : pd(i); };
+  // v at every window row (k, a, w) of every chunk; zero past Np
+  for (int idx = grid_thread(); idx < P.n_chunks * P.rows; idx += grid_threads()) {
+    const int c = idx / P.rows, rho = idx - c * P.rows;
+    const int ka = rho / P.w_row, w = rho - ka * P.w_row;
+    const int kw = ka / DP, a = ka - kw * DP;
+    const int q = __ldg(P.win_off + c * P.k_win + kw) + w;
+    P.xwin[idx] = q < n ? v((size_t)a * n + q) : 0.f;
+  }
+  gsync(grid, tm, kTXwin);
+
+  const int n_slabs = P.n_chunks * P.spc, pr = part_rows(P);
+  const int cols = P.cols, w4 = cols / 4;
+  const int H = kThreads / w4;          // row groups of the partial t
+  const int c4 = tid % w4, h = tid / w4;
+  const float4* slab4 = reinterpret_cast<const float4*>(S.slab);
+  const float4* ts4 = reinterpret_cast<const float4*>(S.ts);
+  bool first = true;
+  for (int g = blockIdx.x; g < n_slabs; g += gridDim.x) {
+    const int c = g / P.spc, sc = g - c * P.spc;
+    if (first) {
+      // its parts were issued before the phase, its state values now
+      load_xs(P, S, g);
+      cp_async_wait(0);
+    }
+    // the partial t over the slab's columns, part by part as they land:
+    // thread (column quad c4, row group h) sums rows h, h + H, ...
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < kParts; ++q) {
+      if (!first) cp_async_wait(kParts - 1 - q);
+      __syncthreads();
+      if (q == 0) tm.lap(kTCopyWait);
+      const int r1 = min(P.rows, (q + 1) * pr);
+      if (h < H) {
+#pragma unroll 4
+        for (int r = q * pr + h; r < r1; r += H)
+          acc = f4fma(S.xs[r], slab4[(size_t)r * w4 + c4], acc);
+      }
+    }
+    // row groups combined in a fixed order
+    S.comb[tid] = acc;
+    __syncthreads();
+    if (tid < w4) {
+      float4 t4 = acc;
+      for (int hh = 1; hh < H; ++hh) t4 = f4add(t4, S.comb[hh * w4 + tid]);
+      reinterpret_cast<float4*>(S.ts)[tid] = t4;
+    }
+    __syncthreads();
+    tm.lap(kTPartial);
+    const int gn = g + gridDim.x;
+    if (gn < n_slabs) load_xs(P, S, gn);   // xs is free: the next slab's
+    // the w-pass: one thread per row, rows . t over the slab's columns,
+    // part by part; each freed part takes the next slab's rows
+    float* wdst = P.wpart + (size_t)c * P.rows * P.spc + sc;
+    for (int q = 0; q < kParts; ++q) {
+      const int r1 = min(P.rows, (q + 1) * pr);
+      for (int r = q * pr + tid; r < r1; r += kThreads) {
+        // the row's float4s from a rotated start: fewer bank conflicts
+        const float4* row = slab4 + (size_t)r * w4;
+        float s = 0.f;
+        if (w4 == 4) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int kk = (k + r) & 3;
+            const float4 a = row[kk], b = ts4[kk];
+            s = fmaf(a.x, b.x, s);
+            s = fmaf(a.y, b.y, s);
+            s = fmaf(a.z, b.z, s);
+            s = fmaf(a.w, b.w, s);
+          }
+        } else {
+          int kk = r % w4;
+          for (int k = 0; k < w4; ++k) {
+            const float4 a = row[kk], b = ts4[kk];
+            s = fmaf(a.x, b.x, s);
+            s = fmaf(a.y, b.y, s);
+            s = fmaf(a.z, b.z, s);
+            s = fmaf(a.w, b.w, s);
+            if (++kk == w4) kk = 0;
+          }
+        }
+        wdst[(size_t)r * P.spc] = s;
+      }
+      __syncthreads();
+      if (gn < n_slabs) load_part(P, S, gn, q);
+    }
+    tm.lap(kTWpass);
+    first = false;
+  }
+
+  // wide columns: widepart[s, m] = sum_{a, p in segment s} v[a,p] u[a,m,p],
+  // on the blocks with the fewest slabs first
   const int nseg = n_wseg(n);
-  const int n_items = n_tile_items + P.mw * nseg;
-  float* xs = smem;                    // [Wrow] window of v
-  float* half = smem + max(wr, bdl);   // [kColGroup] upper-half sums
-  const int half_rows = (wr + 1) / 2;
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    if (item < n_tile_items) {
-      const int jg = item % ncg;
-      const int q = item / ncg;               // (c*K + k)*DP + a
-      const int a = q % DP;
-      const int ck = q / DP;
-      const int off = __ldg(P.win_off + ck);
-      for (int w = threadIdx.x; w < wr; w += blockDim.x) {
-        const int pp = off + w;
-        xs[w] = pp < n ? v[a * n + pp] : 0.f;
-      }
-      __syncthreads();
-      const int col = jg * kColGroup + (threadIdx.x & (kColGroup - 1));
-      const int h = threadIdx.x / kColGroup;  // row half 0 or 1
-      const int w0 = h * half_rows;
-      const int w1 = min(wr, w0 + half_rows);
-      const float* tp = P.tiles + ((size_t)q * wr) * bdl + col;
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      int w = w0;
-      for (; w + 4 <= w1; w += 4) {
-        a0 = fmaf(xs[w], __ldg(tp + (size_t)w * bdl), a0);
-        a1 = fmaf(xs[w + 1], __ldg(tp + (size_t)(w + 1) * bdl), a1);
-        a2 = fmaf(xs[w + 2], __ldg(tp + (size_t)(w + 2) * bdl), a2);
-        a3 = fmaf(xs[w + 3], __ldg(tp + (size_t)(w + 3) * bdl), a3);
-      }
-      for (; w < w1; ++w) a0 = fmaf(xs[w], __ldg(tp + (size_t)w * bdl), a0);
-      const float acc = (a0 + a1) + (a2 + a3);
-      if (h == 1) half[threadIdx.x - kColGroup] = acc;
-      __syncthreads();
-      if (h == 0) P.tpart[(size_t)q * bdl + col] = acc + half[threadIdx.x];
-      __syncthreads();
-    } else {
-      // wide columns: widepart[s, m] = sum_{a, p in segment s} v[a,p] u[a,m,p]
-      const int wi = item - n_tile_items;
-      const int m = wi / nseg, s = wi % nseg;
-      const int p0 = s * kWideSeg, p1 = min(n, p0 + kWideSeg);
-      float acc[1] = {0.f};
-      for (int pp = p0 + threadIdx.x; pp < p1; pp += blockDim.x) {
+  const int n_wide = P.mw * nseg;
+  for (int item = (int)gridDim.x - 1 - (int)blockIdx.x; item < n_wide;
+       item += gridDim.x) {
+    const int m = item / nseg, sg = item - m * nseg;
+    const int p0 = sg * kWideSeg, p1 = min(n, p0 + kWideSeg);
+    float accw[1] = {0.f};
+    for (int q = p0 + tid; q < p1; q += kThreads) {
 #pragma unroll
-        for (int a = 0; a < DP; ++a)
-          acc[0] = fmaf(v[a * n + pp], __ldg(P.u + ((size_t)a * P.mw + m) * n + pp), acc[0]);
-      }
-      block_sum<1>(acc, red);
-      if (threadIdx.x == 0) P.widepart[(size_t)s * P.mw + m] = acc[0];
+      for (int a = 0; a < DP; ++a)
+        accw[0] = fmaf(v((size_t)a * n + q),
+                       __ldg(P.u + ((size_t)a * P.mw + m) * n + q), accw[0]);
     }
+    block_sum<1>(accw, S.red);
+    if (tid == 0) P.widepart[(size_t)sg * P.mw + m] = accw[0];
   }
+  if (prefetch && (int)blockIdx.x < n_slabs) {
+    for (int q = 0; q < kParts; ++q) load_part(P, S, blockIdx.x, q);
+  }
+  tm.lap(kTWide);
 }
 
-// Phase M2: w-pass rows wpart[c, k, a, w] = tiles[c, k, a, w, :] . t[c, :]
-// with t[c] = sum over the chunk's (k, a) partials, chunks in reverse order
-// (the last t-pass chunks are the ones still in L2); and urow = u^T v.
+// Phase 2: ap = (T v - u urow) - band rows, and this block's p . ap.
 template <int DP>
-__device__ void phase_wpass(const Params& P, float* smem) {
-  const int wr = P.w_row, bdl = P.b_dl;
-  const int nrg = (wr + kRowGroup - 1) / kRowGroup;
-  const int n_row_items = P.n_chunks * P.k_win * DP * nrg;
-  const int n_items = n_row_items + (P.mw > 0 ? 1 : 0);
-  const int kd = P.k_win * DP;
-  float* ts = smem;            // [B*dl] the chunk's t
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    if (item < n_row_items) {
-      const int ir = n_row_items - 1 - item;
-      const int rg = ir % nrg;
-      const int q = ir / nrg;                 // (c*K + k)*DP + a
-      const int c = q / kd;
-      const float* tsrc = P.tpart + (size_t)c * kd * bdl;
-      for (int j = threadIdx.x; j < bdl; j += blockDim.x) {
-        float s = 0.f;
-        for (int ka = 0; ka < kd; ++ka) s += tsrc[(size_t)ka * bdl + j];
-        ts[j] = s;
-      }
-      __syncthreads();
-      const int r0 = rg * kRowGroup;
-      const int r1 = min(wr, r0 + kRowGroup);
-      for (int row = r0 + warp; row < r1; row += kWarps) {
-        const float* tp = P.tiles + ((size_t)q * wr + row) * bdl;
-        float acc = 0.f;
-        for (int j = lane; j < bdl; j += 32) acc = fmaf(__ldg(tp + j), ts[j], acc);
-        acc = warp_sum(acc);
-        if (lane == 0) P.wpart[(size_t)q * wr + row] = acc;
-      }
-      __syncthreads();
-    } else {
-      const int nseg = n_wseg(P.np);
-      for (int m = threadIdx.x; m < P.mw; m += blockDim.x) {
-        float s = 0.f;
-        for (int sg = 0; sg < nseg; ++sg) s += P.widepart[(size_t)sg * P.mw + m];
-        P.urow[m] = s;
-      }
-    }
+__device__ void phase_gather(const Params& P, const float* v, const float* pcur,
+                             int buf, const SmemPtrs& S) {
+  const int n = P.np, cap = P.cover_cap, nseg = n_wseg(n);
+  const bool spc4 = P.spc % 4 == 0;
+  for (int m = threadIdx.x; m < P.mw; m += kThreads) {
+    float s = 0.f;
+    for (int sg = 0; sg < nseg; ++sg) s += P.widepart[(size_t)sg * P.mw + m];
+    S.urow[m] = s;
   }
-}
-
-// Phase M3: ap = ((T v - u urow) - band rows), and this block's p . ap.
-template <int DP>
-__device__ void phase_gather(const Params& P, const float* v, int buf,
-                             float* red) {
-  const int n = P.np, N = DP * n, cap = P.cover_cap;
+  __syncthreads();
   float part[1] = {0.f};
-  for (int e = grid_thread(); e < N; e += grid_threads()) {
-    const int a = e / n, pp = e - a * n;
-    const int pu = (pp + 1 == n) ? 0 : pp + 1;
-    const int pl = (pp == 0) ? n - 1 : pp - 1;
-    float yd = 0.f, yu = 0.f, yl = 0.f;
+  const int ppb = poses_per_block(n), q0 = blockIdx.x * ppb;
+  for (int i = threadIdx.x; i < DP * ppb; i += kThreads) {
+    const int a = i / ppb, q = q0 + i - a * ppb;
+    if (q >= n) continue;
+    const int qu = (q + 1 == n) ? 0 : q + 1;
+    const int ql = (q == 0) ? n - 1 : q - 1;
+    {
+      float yd = 0.f, yu = 0.f, yl = 0.f;
 #pragma unroll
-    for (int b = 0; b < DP; ++b) {
-      const size_t o = (size_t)(a * DP + b) * n;
-      yd = fmaf(__ldg(P.td + o + pp), v[b * n + pp], yd);
-      yu = fmaf(__ldg(P.tu + o + pp), v[b * n + pu], yu);
-      yl = fmaf(__ldg(P.tl + o + pp), v[b * n + pl], yl);
+      for (int b = 0; b < DP; ++b) {
+        const size_t o = (size_t)(a * DP + b) * n;
+        yd = fmaf(__ldg(P.td + o + q), v[(size_t)b * n + q], yd);
+        yu = fmaf(__ldg(P.tu + o + q), v[(size_t)b * n + qu], yu);
+        yl = fmaf(__ldg(P.tl + o + q), v[(size_t)b * n + ql], yl);
+      }
+      float y = yd + yu + yl;
+      if (P.mw > 0) {
+        float wide = 0.f;
+        for (int m = 0; m < P.mw; ++m)
+          wide = fmaf(__ldg(P.u + ((size_t)a * P.mw + m) * n + q), S.urow[m], wide);
+        y -= wide;
+      }
+      // the covering windows in (chunk, window) order, each over the slabs
+      float band = 0.f;
+      for (int s = 0; s < cap; ++s) {
+        const int cv = __ldg(P.cover + (size_t)q * cap + s);
+        if (cv < 0) break;
+        const float* wr = P.wpart + ((size_t)cv + (size_t)a * P.w_row) * P.spc;
+        if (spc4) {
+          const float4* wr4 = reinterpret_cast<const float4*>(wr);
+#pragma unroll 8
+          for (int k = 0; k < P.spc / 4; ++k) {
+            const float4 w = wr4[k];
+            band += w.x;
+            band += w.y;
+            band += w.z;
+            band += w.w;
+          }
+        } else {
+          for (int sl = 0; sl < P.spc; ++sl) band += wr[sl];
+        }
+      }
+      y -= band;
+      const size_t e = (size_t)a * n + q;
+      P.ap[e] = y;
+      part[0] = fmaf(pcur[e], y, part[0]);
     }
-    float y = yd + yu + yl;
-    if (P.mw > 0) {
-      float wide = 0.f;
-      for (int m = 0; m < P.mw; ++m)
-        wide = fmaf(__ldg(P.u + ((size_t)a * P.mw + m) * n + pp), P.urow[m], wide);
-      y -= wide;
-    }
-    float band = 0.f;
-    for (int s = 0; s < cap; ++s) {
-      const int cv = __ldg(P.cover + (size_t)pp * cap + s);
-      if (cv < 0) break;
-      band += P.wpart[(size_t)cv + (size_t)a * P.w_row];
-    }
-    y -= band;
-    P.ap[e] = y;
-    part[0] = fmaf(P.p[e], y, part[0]);
   }
-  put_partials<1>(P, buf, part, red);
+  put_partials<1>(P, buf, part, S.red);
 }
 
-// --- preconditioner phases: z = M^-1 r ---------------------------------------
+// --- the preconditioner: z = M^-1 r ------------------------------------------
 
-// PCR level l: out = t + alpha_l t[p - s] + gamma_l t[p + s], s = 2^l.
+// Coarse restriction, part 1: this block's share of rc[b, g] =
+// sum_p r[b, p] rmat[p, g] over its own poses, from the updated r it has
+// just written (block barrier before), into rcpart[block].
 template <int DP>
-__device__ void pcr_level(const Params& P, int l, const float* t, float* out) {
-  const int n = P.np, N = DP * n;
-  const float* al = P.alphas + (size_t)l * DP * DP * n;
-  const float* ga = P.gammas + (size_t)l * DP * DP * n;
-  const int sm = (int)((1LL << l) % n);
-  for (int e = grid_thread(); e < N; e += grid_threads()) {
-    const int a = e / n, pp = e - a * n;
-    int pd = pp - sm;
-    if (pd < 0) pd += n;
-    int pu = pp + sm;
-    if (pu >= n) pu -= n;
-    float sa = 0.f, sg = 0.f;
-#pragma unroll
-    for (int b = 0; b < DP; ++b) {
-      const size_t c = (size_t)(a * DP + b) * n + pp;
-      sa = fmaf(__ldg(al + c), t[b * n + pd], sa);
-      sg = fmaf(__ldg(ga + c), t[b * n + pu], sg);
-    }
-    out[e] = t[e] + sa + sg;
-  }
-}
-
-// Coarse restriction rc[b, g] = sum_p r[b, p] rmat[p, g]: one item per g.
-template <int DP>
-__device__ void coarse_restrict(const Params& P, float* red) {
+__device__ void coarse_restrict_part(const Params& P, const float* r) {
   const int n = P.np, nc = P.nc;
-  for (int g = blockIdx.x; g < nc; g += gridDim.x) {
-    float acc[DP];
-#pragma unroll
-    for (int b = 0; b < DP; ++b) acc[b] = 0.f;
-    for (int pp = threadIdx.x; pp < n; pp += blockDim.x) {
-      const float rm = __ldg(P.rmat + (size_t)pp * nc + g);
-#pragma unroll
-      for (int b = 0; b < DP; ++b) acc[b] = fmaf(P.r[b * n + pp], rm, acc[b]);
-    }
-    block_sum<DP>(acc, red);
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int b = 0; b < DP; ++b) P.rc[b * nc + g] = acc[b];
-    }
+  const int ppb = poses_per_block(n), q0 = blockIdx.x * ppb;
+  const int q1 = min(n, q0 + ppb);
+  float* dst = P.rcpart + (size_t)blockIdx.x * DP * nc;
+  for (int i = threadIdx.x; i < DP * nc; i += kThreads) {
+    const int b = i / nc, g = i - b * nc;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int q = q0; q < q1; ++q)
+      acc = fmaf(r[(size_t)b * n + q], __ldg(P.rmat + (size_t)q * nc + g), acc);
+    dst[i] = acc;
   }
 }
 
-// Coarse solve za[a, g] = sum_{b, h} cinv[a, b, g, h] rc[b, h]: one item per
-// (a, g).
+// Coarse restriction, part 2: rc = the blocks' shares summed in block
+// order, one block per entry.
+template <int DP>
+__device__ void coarse_restrict_sum(const Params& P, float* red) {
+  const int m = DP * P.nc;
+  for (int i = blockIdx.x; i < m; i += gridDim.x) {
+    float acc[1] = {0.f};
+    for (int bb = threadIdx.x; bb < (int)gridDim.x; bb += kThreads)
+      acc[0] += P.rcpart[(size_t)bb * m + i];
+    block_sum<1>(acc, red);
+    if (threadIdx.x == 0) P.rc[i] = acc[0];
+  }
+}
+
+// Coarse solve za[a, g] = sum_{b, h} cinv[a, b, g, h] rc[b, h]: one block
+// per (a, g).
 template <int DP>
 __device__ void coarse_solve(const Params& P, float* red) {
   const int nc = P.nc;
@@ -422,137 +633,246 @@ __device__ void coarse_solve(const Params& P, float* red) {
   }
 }
 
-// z = M^-1 r with r complete (grid barrier before).  Ends with a grid
-// barrier after the partials of r . z and r . r went to buffer `buf`.
-template <int DP>
-__device__ void precond(const Params& P, cg::grid_group& grid, int buf,
-                        float* red) {
-  const bool coarse = P.cinv != nullptr;
-  const int nph = max(P.nlevels, coarse ? 2 : 0);
-  const float* t = P.r;
-  for (int l = 0; l < nph; ++l) {
-    if (l < P.nlevels) {
-      float* o = (l & 1) ? P.tb : P.ta;
-      pcr_level<DP>(P, l, t, o);
-      t = o;
-    }
-    if (coarse && l == 0) coarse_restrict<DP>(P, red);
-    if (coarse && l == 1) coarse_solve<DP>(P, red);
-    grid.sync();
-  }
-  const int n = P.np, N = DP * n, nc = P.nc;
-  float part[2] = {0.f, 0.f};
-  for (int e = grid_thread(); e < N; e += grid_threads()) {
-    const int a = e / n, pp = e - a * n;
-    float acc = 0.f;
-#pragma unroll
-    for (int b = 0; b < DP; ++b)
-      acc = fmaf(__ldg(P.binv + (size_t)(a * DP + b) * n + pp), t[b * n + pp], acc);
-    if (coarse) {
-      float zc = 0.f;
-      for (int g = 0; g < nc; ++g)
-        zc = fmaf(P.za[a * nc + g], __ldg(P.rmat + (size_t)pp * nc + g), zc);
-      acc += zc;
-    }
-    P.z[e] = acc;
-    const float re = P.r[e];
-    part[0] = fmaf(re, acc, part[0]);
-    part[1] = fmaf(re, re, part[1]);
-  }
-  put_partials<2>(P, buf, part, red);
-  grid.sync();
+// Shift 2^l mod n.
+__device__ __forceinline__ int pcr_shift(int l, int n) { return (int)((1LL << l) % n); }
+
+__device__ __forceinline__ int wrap(int q, int n) {
+  return q < 0 ? q + n : (q >= n ? q - n : q);
 }
 
+// The update r := rn (into rdst) and z = M^-1 r, in max(ceil(L/2), 4 with a
+// coarse level, 1) phases with a grid barrier between them.  Phase k runs
+// PCR levels 2k and 2k+1: the thread of element (a, q) computes level 2k at
+// q and q -+ 2^(2k+1) itself (the values level 2k+1 reads there; the same
+// arithmetic as the threads that own them, so the same bits), and level
+// 2k+1 at q.  Level 0 reads r through rn.  With a coarse level, phase 0
+// also takes the blocks' restriction shares, phase 1 their sum, phase 2
+// the coarse solve; the last phase binv, the coarse prolongation and this
+// block's r . z and r . r into buffer `buf`.  Ends with a grid barrier.
 template <int DP>
-__global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
+__device__ void precond_phases(const Params& P, cg::grid_group& grid, Timer& tm,
+                               const RNew& rn, float* rdst, int buf,
+                               const SmemPtrs& S) {
+  const bool coarse = P.nc > 0;
+  const int L = P.nlevels, n = P.np, nc = P.nc;
+  const int nlp = (L + 1) / 2;   // phases with PCR levels
+  const int nph = max(nlp, coarse ? 4 : 1);
+  const int ppb = poses_per_block(n), q0 = blockIdx.x * ppb;
+  // with at most one element per thread, binv is loaded up front
+  const bool one = DP * ppb <= kThreads;
+  float cb[DP];
+  auto load_binv = [&](int a, int q) {
+#pragma unroll
+    for (int b = 0; b < DP; ++b) cb[b] = __ldg(P.binv + (size_t)(a * DP + b) * n + q);
+  };
+  {
+    const int i = threadIdx.x, a = i / ppb, q = q0 + i - a * ppb;
+    if (one && i < DP * ppb && q < n) load_binv(a, q);
+  }
+  float part[2] = {0.f, 0.f};
+  for (int ph = 0; ph < nph; ++ph) {
+    if (ph) gsync(grid, tm, kTPrecond);
+    if (coarse && ph == 1) coarse_restrict_sum<DP>(P, S.red);
+    if (coarse && ph == 2) coarse_solve<DP>(P, S.red);
+    // levels l0 (and l0 + 1) of this phase: input `tin` (level l0 - 1), or
+    // rn for level 0; output of the phase's last level in `tout`
+    const int l0 = 2 * ph;
+    const bool pair = l0 + 1 < L;
+    float* tout = (ph & 1) ? P.tb : P.ta;
+    const float* tin = (ph & 1) ? P.ta : P.tb;
+    auto tv = [&](int b, int q) {
+      return ph ? tin[(size_t)b * n + q] : rn((size_t)b * n + q);
+    };
+    // level l0, all components, at pose qc
+    auto level0 = [&](int qc, float (&u)[DP]) {
+      const int s = pcr_shift(l0, n);
+      const int qd = wrap(qc - s, n), qu = wrap(qc + s, n);
+      float td[DP], tu[DP];
+#pragma unroll
+      for (int b = 0; b < DP; ++b) {
+        td[b] = tv(b, qd);
+        tu[b] = tv(b, qu);
+      }
+      const float* al = P.alphas + (size_t)l0 * DP * DP * n;
+      const float* ga = P.gammas + (size_t)l0 * DP * DP * n;
+#pragma unroll
+      for (int a2 = 0; a2 < DP; ++a2) {
+        float sa = 0.f, sg = 0.f;
+#pragma unroll
+        for (int b = 0; b < DP; ++b) {
+          const size_t c = (size_t)(a2 * DP + b) * n + qc;
+          sa = fmaf(__ldg(al + c), td[b], sa);
+          sg = fmaf(__ldg(ga + c), tu[b], sg);
+        }
+        u[a2] = tv(a2, qc) + sa + sg;
+      }
+    };
+    if (ph == 0 || l0 < L) {
+      for (int i = threadIdx.x; i < DP * ppb; i += kThreads) {
+        const int a = i / ppb, q = q0 + i - a * ppb;
+        if (q >= n) continue;
+        const size_t e = (size_t)a * n + q;
+        if (ph == 0) rdst[e] = rn(e);
+        if (l0 >= L) continue;
+        float uq[DP];
+        level0(q, uq);
+        if (!pair) {
+          tout[e] = uq[a];
+          continue;
+        }
+        const int s2 = pcr_shift(l0 + 1, n);
+        float ud[DP], uu[DP];
+        level0(wrap(q - s2, n), ud);
+        level0(wrap(q + s2, n), uu);
+        const float* al = P.alphas + (size_t)(l0 + 1) * DP * DP * n;
+        const float* ga = P.gammas + (size_t)(l0 + 1) * DP * DP * n;
+        float sa = 0.f, sg = 0.f;
+#pragma unroll
+        for (int b = 0; b < DP; ++b) {
+          const size_t c = (size_t)(a * DP + b) * n + q;
+          sa = fmaf(__ldg(al + c), ud[b], sa);
+          sg = fmaf(__ldg(ga + c), uu[b], sg);
+        }
+        tout[e] = uq[a] + sa + sg;
+      }
+    }
+    if (coarse && ph == 0) {
+      __syncthreads();
+      coarse_restrict_part<DP>(P, rdst);
+    }
+    if (ph == nph - 1) {
+      __syncthreads();   // the block's last level and r complete
+      const float* tf = L ? (((nlp - 1) & 1) ? P.tb : P.ta) : rdst;
+      for (int i = threadIdx.x; i < DP * ppb; i += kThreads) {
+        const int a = i / ppb, q = q0 + i - a * ppb;
+        if (q >= n) continue;
+        if (!one) load_binv(a, q);
+        float acc = 0.f;
+#pragma unroll
+        for (int b = 0; b < DP; ++b) acc = fmaf(cb[b], tf[(size_t)b * n + q], acc);
+        if (coarse) {
+          float zc = 0.f;
+          for (int g = 0; g < nc; ++g)
+            zc = fmaf(P.za[a * nc + g], __ldg(P.rmat + (size_t)q * nc + g), zc);
+          acc += zc;
+        }
+        const size_t e = (size_t)a * n + q;
+        P.z[e] = acc;
+        const float re = rdst[e];
+        part[0] = fmaf(re, acc, part[0]);
+        part[1] = fmaf(re, re, part[1]);
+      }
+    }
+  }
+  put_partials<2>(P, buf, part, S.red);
+  gsync(grid, tm, kTPrecond);
+}
+
+// --- the kernel ------------------------------------------------------------------
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
 band_fused_pcg_chunk_kernel(Params P) {
-  extern __shared__ float smem[];
-  const int row = P.w_row > P.b_dl ? P.w_row : P.b_dl;
-  float* red = smem + row + kThreads;   // reduction slots (64 floats)
+  extern __shared__ __align__(128) float smem[];
+  const Smem SL = smem_layout(P.rows, P.cols, P.mw);
+  const SmemPtrs S{smem + SL.slab, smem + SL.xs, smem + SL.ts,
+                   reinterpret_cast<float4*>(smem + SL.comb), smem + SL.urow,
+                   smem + SL.red};
   cg::grid_group grid = cg::this_grid();
-  const int n = P.np, N = DP * n;
-  const bool restart = P.restart != 0;
-  int buf = 0;   // partial-sum buffer, alternated per grid-wide sum
+  Timer tm;
+  tm.on = P.timing != nullptr && threadIdx.x == 0;
+  tm.t = tm.on ? clock64() : 0;
+#pragma unroll
+  for (int k = 0; k < kTimers; ++k) tm.acc[k] = 0;
+  const int n = P.np;
+  // the first trip's first slab, copied while the chunk entry runs
+  if ((int)blockIdx.x < P.n_chunks * P.spc) {
+    for (int q = 0; q < kParts; ++q) load_part(P, S, blockIdx.x, q);
+  }
+  for (int e = grid_thread(); e < DP * n; e += grid_threads()) P.x[e] = P.x_in[e];
 
   // chunk entry: restart replaces the recurrence residual with the carried
   // true residual and resets the search direction
-  float s1[1] = {0.f};
-  for (int e = grid_thread(); e < N; e += grid_threads()) {
-    P.x[e] = P.x_in[e];
-    const float re = restart ? P.rt_in[e] : P.r_in[e];
-    P.r[e] = re;
-    if (!restart) P.p[e] = P.p_in[e];
-    s1[0] = fmaf(re, re, s1[0]);
-  }
-  put_partials<1>(P, buf, s1, red);
-  grid.sync();
-  grid_totals<1>(P, buf, s1, red);
-  buf ^= 1;
-  float rr = s1[0];
-  float rz = *P.rz_in;
-  if (restart) {
-    precond<DP>(P, grid, buf, red);
+  int buf = 0;   // partial-sum buffer, alternated per grid-wide sum
+  float rr, rz;
+  PDir pd{P.z, P.p_in, 0.f, 0};
+  if (P.restart != 0) {
+    precond_phases<DP>(P, grid, tm, RNew{P.rt_in, nullptr, 0.f}, P.ra, buf, S);
     float s2[2];
-    grid_totals<2>(P, buf, s2, red);
+    grid_totals<2>(P, buf, s2, S.red);
     buf ^= 1;
     rz = s2[0];
-    for (int e = grid_thread(); e < N; e += grid_threads()) P.p[e] = P.z[e];
+    rr = s2[1];
+    pd.mode = 1;
+  } else {
+    float s1[1] = {0.f};
+    for (int e = grid_thread(); e < DP * n; e += grid_threads()) {
+      const float re = P.r_in[e];
+      P.ra[e] = re;
+      s1[0] = fmaf(re, re, s1[0]);
+    }
+    put_partials<1>(P, buf, s1, S.red);
+    gsync(grid, tm, kTOther);
+    grid_totals<1>(P, buf, s1, S.red);
+    buf ^= 1;
+    rr = s1[0];
+    rz = *P.rz_in;
   }
   bool stop = *P.stop_in > 0;
   int it = *P.it_in;
   const float atol2 = *P.atol2;
   float rr_true = 0.f;
+  float* rcur = P.ra;
+  float* rnext = P.rb;
 
   for (int i = 0; i <= P.chunk_iters; ++i) {
     const bool last = i == P.chunk_iters;
-    const float* v = last ? P.x : P.p;
-    grid.sync();                                   // v complete
-    phase_tpass<DP>(P, v, smem, red);
-    grid.sync();
-    phase_wpass<DP>(P, smem);
-    grid.sync();
-    phase_gather<DP>(P, v, buf, red);
-    grid.sync();
+    // p ping-pong, arranged so that the last trip's p lands in P.p
+    float* pnew = ((P.chunk_iters - i) & 1) ? P.pb : P.p;
+    tm.lap(kTOther);
+    phase_slabs<DP>(P, grid, pd, last, pnew, !last, S, tm);
+    gsync(grid, tm, kTOther);
+    phase_gather<DP>(P, last ? P.x : pnew, pnew, buf, S);
+    gsync(grid, tm, kTGather);
     float sp[1];
-    grid_totals<1>(P, buf, sp, red);
+    grid_totals<1>(P, buf, sp, S.red);
     buf ^= 1;
     const float pap = sp[0];
     if (!last) stop = stop || !(pap > 0.f) || !isfinite(pap);
     const bool done = last || stop || (rr <= atol2) || (it >= P.maxit);
     const float alpha = done ? 0.f : rz / pap;
-    float st[1] = {0.f};
-    for (int e = grid_thread(); e < N; e += grid_threads()) {
-      const float ape = P.ap[e];
-      P.x[e] = P.x[e] + alpha * P.p[e];
-      P.r[e] = P.r[e] - alpha * ape;
-      if (last) {
+    if (last) {
+      float st[1] = {0.f};
+      for (int e = grid_thread(); e < DP * n; e += grid_threads()) {
+        const float ape = P.ap[e];
+        P.x[e] = fmaf(alpha, pnew[e], P.x[e]);
+        P.r[e] = fmaf(-alpha, ape, rcur[e]);
         const float rte = P.rhs[e] - ape;
         P.rt[e] = rte;
         st[0] = fmaf(rte, rte, st[0]);
       }
-    }
-    if (last) {
-      put_partials<1>(P, buf, st, red);
-      grid.sync();
-      grid_totals<1>(P, buf, st, red);
+      put_partials<1>(P, buf, st, S.red);
+      gsync(grid, tm, kTOther);
+      grid_totals<1>(P, buf, st, S.red);
       rr_true = st[0];
       break;
     }
-    grid.sync();                                   // r complete
-    precond<DP>(P, grid, buf, red);
+    for (int e = grid_thread(); e < DP * n; e += grid_threads())
+      P.x[e] = fmaf(alpha, pnew[e], P.x[e]);
+    precond_phases<DP>(P, grid, tm, RNew{rcur, P.ap, alpha}, rnext, buf, S);
     float s2[2];
-    grid_totals<2>(P, buf, s2, red);
+    grid_totals<2>(P, buf, s2, S.red);
     buf ^= 1;
     const float rz_new = s2[0];
     rr = s2[1];
     const float safe_rz = (rz == 0.f) ? 1.f : rz;
     const float beta = done ? 0.f : rz_new / safe_rz;
-    if (!done) {
-      for (int e = grid_thread(); e < N; e += grid_threads())
-        P.p[e] = P.z[e] + beta * P.p[e];
-    }
+    pd = PDir{P.z, pnew, beta, done ? 0 : 2};
     rz = done ? rz : rz_new;
     it += done ? 0 : 1;
+    float* t = rcur;
+    rcur = rnext;
+    rnext = t;
   }
 
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -561,25 +881,51 @@ band_fused_pcg_chunk_kernel(Params P) {
     *P.stop_out = stop ? 1 : 0;
     *P.rr_out = rr_true;
   }
+  if (tm.on) {
+    tm.lap(kTOther);
+    for (int k = 0; k < kTimers; ++k) P.timing[blockIdx.x * kTimers + k] = tm.acc[k];
+  }
 }
 
+// `iters` grid barriers and nothing else, on the same grid: the cost of one.
+__global__ void __launch_bounds__(kThreads, 1) grid_sync_probe_kernel(int iters) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < iters; ++i) grid.sync();
+}
+
+// dims: dp np n_chunks k_win w_row b_dl mw nlevels nc cover_cap chunk_iters
+// maxit restart grid cols
 bool valid_dims(const int* d) {
-  // dp np n_chunks k_win w_row b_dl mw nlevels nc cover_cap chunk_iters
-  // maxit restart grid
+  const long long rows = (long long)d[3] * d[0] * d[4];
   return d[0] == 3 && d[1] >= 1 && d[2] >= 1 && d[3] >= 1 && d[4] >= 1 &&
-         d[5] >= kColGroup && d[5] % kColGroup == 0 && d[6] >= 0 &&
-         d[7] >= 0 && d[8] >= 0 && d[9] >= 1 && d[10] >= 0 && d[12] >= 0 &&
-         d[13] >= 1;
+         d[5] >= 128 && d[5] % 128 == 0 && d[6] >= 0 && d[7] >= 0 &&
+         d[7] < 62 && d[8] >= 0 && d[9] >= 1 && d[10] >= 0 && d[12] >= 0 &&
+         d[13] >= 1 && d[14] >= 4 && d[14] % 4 == 0 && d[14] <= 4 * kThreads &&
+         d[5] % d[14] == 0 && rows % 4 == 0 && rows * d[2] < (1LL << 31);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Blocks of the cooperative grid on `device` for a layout with window rows
-// `w_row` and chunk width `b_dl`: the co-resident maximum, at most
-// kMaxBlocksPerSM per SM (0 when no block fits).  Returns a cudaError_t.
-int band_fused_pcg_chunk_grid(int device, int w_row, int b_dl, int* grid) {
+// The device's SM count and opt-in shared memory per block.  Returns a
+// cudaError_t.
+int band_fused_pcg_chunk_device(int device, int* sms, int* smem_optin) {
+  cudaError_t err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                     device);
+}
+
+// Dynamic shared memory of one block, in bytes.
+long long band_fused_pcg_chunk_smem_bytes(int rows, int cols, int mw) {
+  return (long long)smem_layout(rows, cols, mw).total;
+}
+
+// Blocks of the cooperative grid on `device` at `smem_bytes` per block: one
+// per SM, or 0 when no block fits or the device cannot launch cooperatively.
+// Returns a cudaError_t.
+int band_fused_pcg_chunk_grid(int device, long long smem_bytes, int* grid) {
   *grid = 0;
   int sms = 0, coop = 0;
   cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -587,15 +933,17 @@ int band_fused_pcg_chunk_grid(int device, int w_row, int b_dl, int* grid) {
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return 0;
-  const size_t bytes = smem_bytes(w_row, b_dl);
   err = cudaFuncSetAttribute(band_fused_pcg_chunk_kernel<3>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(grid_sync_probe_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, band_fused_pcg_chunk_kernel<3>, kThreads, bytes);
+      &per_sm, band_fused_pcg_chunk_kernel<3>, kThreads, (size_t)smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  *grid = sms * (per_sm < kMaxBlocksPerSM ? per_sm : kMaxBlocksPerSM);
+  *grid = per_sm >= 1 ? sms : 0;
   return 0;
 }
 
@@ -603,33 +951,50 @@ int band_fused_pcg_chunk_grid(int device, int w_row, int b_dl, int* grid) {
 // not take).
 long long band_fused_pcg_chunk_workspace_floats(const int* dims, int ndims) {
   if (ndims != kNumDims || !valid_dims(dims)) return -1;
-  return (long long)layout(dims[0], dims[1], dims[2], dims[3], dims[4], dims[5],
+  const int rows = dims[3] * dims[0] * dims[4];
+  return (long long)layout(dims[0], dims[1], dims[2], rows, dims[5] / dims[14],
                            dims[6], dims[8], dims[13]).total;
+}
+
+// `iters` grid barriers on a cooperative grid of `grid` blocks of the band
+// kernel's size and shared memory (set by band_fused_pcg_chunk_grid first).
+int band_grid_sync_probe(int grid, long long smem_bytes, int iters, void* stream) {
+  void* args[] = {&iters};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)grid_sync_probe_kernel, dim3(grid), dim3(kThreads), args,
+      (size_t)smem_bytes, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // Launch one chunk on `stream` as a cooperative grid of dims[13] blocks.
 // ptrs: atol2 it rz stop rhs x r p rt | tiles win_off cover u td tu tl
 // alphas gammas binv cinv rmat | x r p rt it rz stop rr (outputs) |
-// workspace.  Returns a cudaError_t (0 = launched).
+// workspace | timing (or null).  Returns a cudaError_t (0 = launched).
 int band_fused_pcg_chunk_launch(const int* dims, int ndims, void* const* ptrs,
                                 int nptrs, void* stream) {
   if (ndims != kNumDims || nptrs != kNumPtrs || !valid_dims(dims))
     return (int)cudaErrorInvalidValue;
   const int dp = dims[0], np = dims[1], n_chunks = dims[2], k_win = dims[3],
             w_row = dims[4], b_dl = dims[5], mw = dims[6], nlevels = dims[7],
-            nc = dims[8], grid = dims[13];
+            nc = dims[8], grid = dims[13], cols = dims[14];
   const bool has_coarse = ptrs[19] != nullptr;
   if (has_coarse != (ptrs[20] != nullptr) || (has_coarse && nc < 1) ||
       (mw > 0) != (ptrs[12] != nullptr) || (nlevels > 0 && ptrs[16] == nullptr))
     return (int)cudaErrorInvalidValue;
-  // every pointer but u, alphas, gammas, cinv and rmat is required
+  // every pointer but u, alphas, gammas, cinv, rmat and timing is required
   static const int kRequired[] = {0,  1,  2,  3,  4,  5,  6,  7,  8,
                                   9,  10, 11, 13, 14, 15, 18, 21, 22,
                                   23, 24, 25, 26, 27, 28, 29};
   for (int i : kRequired)
     if (ptrs[i] == nullptr) return (int)cudaErrorInvalidValue;
+  // the 16-byte copies need aligned tiles and workspace
+  if (((uintptr_t)ptrs[9] & 15) || ((uintptr_t)ptrs[29] & 15))
+    return (int)cudaErrorInvalidValue;
 
-  const Layout L = layout(dp, np, n_chunks, k_win, w_row, b_dl, mw,
+  const int rows = k_win * dp * w_row;
+  const int spc = b_dl / cols;
+  const Layout L = layout(dp, np, n_chunks, rows, spc, mw,
                           has_coarse ? nc : 0, grid);
   float* ws = (float*)ptrs[29];
   Params P;
@@ -637,6 +1002,7 @@ int band_fused_pcg_chunk_launch(const int* dims, int ndims, void* const* ptrs,
   P.b_dl = b_dl; P.mw = mw; P.nlevels = nlevels; P.nc = has_coarse ? nc : 0;
   P.cover_cap = dims[9]; P.chunk_iters = dims[10]; P.maxit = dims[11];
   P.restart = dims[12];
+  P.rows = rows; P.cols = cols; P.spc = spc;
   P.atol2 = (const float*)ptrs[0];
   P.it_in = (const int*)ptrs[1];
   P.rz_in = (const float*)ptrs[2];
@@ -666,19 +1032,23 @@ int band_fused_pcg_chunk_launch(const int* dims, int ndims, void* const* ptrs,
   P.rz_out = (float*)ptrs[26];
   P.stop_out = (int*)ptrs[27];
   P.rr_out = (float*)ptrs[28];
+  P.timing = (long long*)ptrs[30];
   P.ap = ws + L.ap;
   P.z = ws + L.z;
   P.ta = ws + L.ta;
   P.tb = ws + L.tb;
-  P.tpart = ws + L.tpart;
+  P.ra = ws + L.ra;
+  P.rb = ws + L.rb;
+  P.pb = ws + L.pb;
+  P.xwin = ws + L.xwin;
   P.wpart = ws + L.wpart;
   P.widepart = ws + L.widepart;
-  P.urow = ws + L.urow;
+  P.rcpart = ws + L.rcpart;
   P.rc = ws + L.rc;
   P.za = ws + L.za;
   P.partials = ws + L.partials;
 
-  const size_t bytes = smem_bytes(w_row, b_dl);
+  const size_t bytes = smem_layout(rows, cols, mw).total;
   cudaError_t err = cudaFuncSetAttribute(
       band_fused_pcg_chunk_kernel<3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);

@@ -16,11 +16,12 @@ stop is set, or ``ceil(max_iters / chunk)`` launches ran; it reads one flag
 per chunk to the host.
 
 * resident (``csrc/fused_pcg_chunk.cu``, :func:`fused_pcg_chunk`): V as
-  dense slabs ``u [dp, Np, Mw]``, one thread block;
+  dense slabs ``u [dp, Np, Mw]`` split by columns over one thread-block
+  cluster (:func:`b1_layout`);
 * band (``csrc/band_fused_pcg_chunk.cu``, :func:`band_fused_pcg_chunk`):
   for large graphs, V as the tile stack of ``ops/band_plan.py`` streamed
-  from device memory by a cooperative grid, plus a few full-height wide
-  columns.
+  from device memory once per matvec by a cooperative grid of one block
+  per SM (:func:`band_slab_plan`), plus a few full-height wide columns.
 
 :func:`fused_mode` picks one.  The preconditioner is PCR on the chain
 (or block-Jacobi), optionally with the additive Galerkin coarse level
@@ -39,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -49,10 +51,11 @@ from toyslam_torch.ops import schur
 _f32 = torch.float32
 _i32 = torch.int32
 
-# Resident budget of the kernel on an H100.  The [dp, Np] state vectors and
-# the V^T x row live in one block's shared memory (at most 227 KB, the
-# opt-in maximum); the V slabs are read from global memory twice per matvec
-# and stay fast only while they fit in L2 (50 MB) next to everything else.
+# Resident budget of the kernel on an H100.  Every block of its cluster
+# holds the [dp, Np] state vectors in shared memory (at most 227 KB, the
+# opt-in maximum); the V slabs stay in shared memory where a block's slice
+# fits, else they are read from L2 on every matvec and stay fast only while
+# they fit in L2 (50 MB) next to everything else.
 SMEM_BUDGET_BYTES = 232_448
 SLAB_BUDGET_BYTES = 40 * 2**20
 # Budget of the band kernel on an H100: it has no on-chip ceiling (the
@@ -358,40 +361,139 @@ def fused_precond_from_graph(cfg, graph, lam: torch.Tensor) -> FusedPrecond:
                                cfg.pcg_coarse_group)
 
 
-def chunk_smem_bytes(dp: int, np_: int, mw: int, nc: int) -> int:
-    """Shared memory of one kernel launch: seven [dp, Np] vectors, the
-    V^T x row, the coarse scratch and the reduction slots (mirrors
-    ``smem_bytes`` in csrc/fused_pcg_chunk.cu)."""
-    return 4 * (7 * dp * np_ + mw + 2 * dp * nc + 2 * 32 + 2)
+B1_THREADS = 576      # kThreads in csrc/fused_pcg_chunk.cu
+B1_CLUSTER = 16       # blocks per launch (a non-portable cluster size)
+
+
+def chunk_smem_bytes(dp: int, np_: int, mw: int, nc: int,
+                     cluster: int = B1_CLUSTER, resident: bool = False) -> int:
+    """Shared memory of one block of the resident kernel: when
+    ``resident``, the block's U slice ``[dp*Np, ceil(Mw / cluster)]`` with
+    rows padded to an odd number of float4s; the float4 column-sum
+    scratch; the block's V^T x columns; seven [dp, Np] vectors; the coarse
+    scratch and the reduction slots (mirrors ``smem_layout`` in
+    csrc/fused_pcg_chunk.cu)."""
+    cp = -(-mw // cluster)
+    n = dp * np_
+    stride = 4 * ((-(-cp // 4)) | 1)
+    return 4 * ((n * stride if resident else 0) + 4 * B1_THREADS
+                + -(-cp // 4) * 4 + 7 * n + 2 * dp * nc
+                + 2 * (B1_THREADS // 32) + 2)
+
+
+class ClusterLayout(NamedTuple):
+    """How one launch of the resident kernel splits U over its cluster."""
+
+    cluster: int          # thread blocks in the launch's cluster
+    cols_per_block: int   # U columns owned by each block
+    resident: bool        # the U slice lives in shared memory for the launch
+    smem_bytes: int       # dynamic shared memory per block
+
+
+def b1_layout(dp: int, np_: int, mw: int, nc: int, smem_limit: int,
+              cluster: int = B1_CLUSTER) -> ClusterLayout:
+    """The resident kernel's layout under a shared-memory limit per block:
+    the U slice in shared memory where it fits beside the vectors, else
+    streamed from L2 on every matvec.  Raises when the vectors alone do not
+    fit."""
+    for resident in (True, False):
+        need = chunk_smem_bytes(dp, np_, mw, nc, cluster, resident)
+        if need <= smem_limit:
+            return ClusterLayout(cluster, -(-mw // cluster), resident, need)
+    raise ValueError(
+        f"fused_pcg_chunk: Np={np_}, Mw={mw} needs {need} B of shared "
+        f"memory per block; {smem_limit} B allowed")
 
 
 BAND_THREADS = 256   # kThreads in csrc/band_fused_pcg_chunk.cu
+BAND_WIDE_SEG = 1024  # kWideSeg: poses per wide-column partial
+# SMs of an H100: the band kernel's grid (one block per SM) on the card the
+# gate plans for; the wrapper re-plans with the device's own count
+H100_SMS = 132
 
 
-def band_smem_bytes(w_row: int, b_dl: int) -> int:
-    """Dynamic shared memory of one block of the band kernel: a window of
-    the state or a chunk's ``t`` row, the column halves and the reduction
-    slots (mirrors ``smem_bytes`` in csrc/band_fused_pcg_chunk.cu)."""
-    return 4 * (max(w_row, b_dl) + BAND_THREADS + 64)
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def band_smem_bytes(rows: int, cols: int, mw: int) -> int:
+    """Dynamic shared memory of one block of the band kernel: a slab of
+    ``rows`` tile rows by ``cols`` columns, the state values of its rows,
+    ``t`` over its columns, the row-group combination buffer, ``u^T v`` and
+    the reduction slots (mirrors ``smem_layout`` in
+    csrc/band_fused_pcg_chunk.cu)."""
+    return 4 * (rows * cols + _round4(rows) + _round4(cols)
+                + 4 * BAND_THREADS + _round4(mw) + 64)
+
+
+class BandSlabPlan(NamedTuple):
+    """How the band kernel cuts each chunk's ``rows = K*dp*Wrow`` tile rows
+    by columns into slabs, one per block at a time, and deals them to the
+    blocks."""
+
+    rows: int              # tile rows per chunk (every slab holds them all)
+    cols: int              # columns per slab
+    slabs_per_chunk: int   # B*dl / cols
+    slabs_per_block: int   # the most slabs one block walks per matvec
+    smem_bytes: int        # dynamic shared memory per block
+
+
+def band_slab_plan(n_chunks: int, k_win: int, dp: int, w_row: int,
+                   b_dl: int, mw: int, smem_limit: int,
+                   grid: int) -> BandSlabPlan:
+    """The slab schedule for a shared-memory limit per block and a grid of
+    blocks: the widest slab (a divisor of B*dl, a multiple of 4 columns, at
+    most 4 per thread) whose rows all fit in shared memory.  Raises when
+    not even 4 columns fit.  No block ever waits on another inside the slab
+    phase, so the grid puts no bound on the slab count."""
+    rows = k_win * dp * w_row
+    if rows % 4:
+        raise ValueError(f"band kernel: K*dp*Wrow={rows} rows per chunk "
+                         "must be a multiple of 4 (16-byte copies)")
+    for cols in range(min(b_dl, 4 * BAND_THREADS), 3, -4):
+        if b_dl % cols == 0 and band_smem_bytes(rows, cols, mw) <= smem_limit:
+            spc = b_dl // cols
+            return BandSlabPlan(rows, cols, spc, -(-n_chunks * spc // grid),
+                                band_smem_bytes(rows, cols, mw))
+    raise ValueError(
+        f"band kernel: a slab of {rows} rows does not fit in {smem_limit} "
+        "B of shared memory even at 4 columns")
+
+
+def band_workspace_floats(dp: int, np_: int, n_chunks: int,
+                          plan: BandSlabPlan, b_dl: int, mw: int, nc: int,
+                          grid: int) -> int:
+    """Workspace floats of one launch: seven [dp, Np] vectors, the matvec
+    input at the window rows, the w-pass rows per slab, the wide partials,
+    the blocks' coarse restriction shares, the coarse scratch and the
+    partial sums (mirrors ``layout`` in csrc/band_fused_pcg_chunk.cu)."""
+    o = _round4(7 * dp * np_)
+    cells = n_chunks * plan.rows
+    return (o + cells + plan.slabs_per_chunk * cells
+            + -(-np_ // BAND_WIDE_SEG) * mw + grid * dp * nc + 2 * dp * nc
+            + 2 * grid * 4)
 
 
 def band_device_bytes(dp: int, np_: int, band, mw: int, nlevels: int,
                       nc: int) -> int:
-    """Device memory the band solve holds at once: the tile stack (twice:
-    the zeroed stack and the values written into it), the wide columns,
-    the T, PCR and ``binv`` planes, the coarse level and the kernel's
-    state and workspace (mirrors ``workspace_floats`` in
-    csrc/band_fused_pcg_chunk.cu, with the grid's partial sums left out)."""
+    """Device memory the band solve holds at once on an H100: the tile
+    stack (three times: the zeroed stack, the values written into it and
+    the kernel's slab-major copy), the wide columns, the T, PCR and
+    ``binv`` planes, the coarse level, the chunk state in and out, the
+    kernel's workspace and the cover table."""
     dd = dp * dp
     n_ck = band.n_chunks * band.k_windows
     b_dl = band.chunk_b * band.dl
+    plan = band_slab_plan(band.n_chunks, band.k_windows, dp, band.w_row,
+                          b_dl, mw, SMEM_BUDGET_BYTES, H100_SMS)
     words = (
-        2 * n_ck * dp * band.w_row * b_dl
+        3 * n_ck * dp * band.w_row * b_dl
         + dp * mw * np_
         + (4 + 2 * nlevels) * dd * np_
         + dd * nc * nc + np_ * nc
-        + 12 * dp * np_
-        + n_ck * dp * (b_dl + band.w_row)
+        + 9 * dp * np_
+        + band_workspace_floats(dp, np_, band.n_chunks, plan, b_dl, mw, nc,
+                                H100_SMS)
         + np_ * band.cover.shape[-1]
     )
     return 4 * words
@@ -458,15 +560,22 @@ def fused_mode(cfg, graph) -> str:
             "(ROADMAP.md A.5)"
         )
     nlevels = max(1, (n - 1).bit_length()) if local_kind == "tridiag" else 0
-    need = band_device_bytes(dp, n, band, band.n_wide * dl + dp * c,
-                             nlevels, nc)
-    bsmem = band_smem_bytes(band.w_row, band.chunk_b * dl)
-    if need > BAND_BUDGET_BYTES or bsmem > SMEM_BUDGET_BYTES:
+    b_mw = band.n_wide * dl + dp * c
+    try:
+        plan = band_slab_plan(band.n_chunks, band.k_windows, dp,
+                              band.w_row, band.chunk_b * dl, b_mw,
+                              SMEM_BUDGET_BYTES, H100_SMS)
+    except ValueError as e:
+        raise NotImplementedError(
+            f"{e}: the reference takes its plain PCG loop there, not ported "
+            "yet (ROADMAP.md A.5)") from None
+    need = band_device_bytes(dp, n, band, b_mw, nlevels, nc)
+    if need > BAND_BUDGET_BYTES:
         raise NotImplementedError(
             f"the band solve of this graph needs {need} B of device memory "
             f"(budget {BAND_BUDGET_BYTES} B; tile stack {band.tile_bytes} "
-            f"B) and {bsmem} B of shared memory per block (budget "
-            f"{SMEM_BUDGET_BYTES} B): the reference takes its plain PCG "
+            f"B; slabs of {plan.rows} x {plan.cols}, {plan.smem_bytes} B of "
+            "shared memory per block): the reference takes its plain PCG "
             "loop there, not ported yet (ROADMAP.md A.5)"
         )
     return "band"
@@ -571,13 +680,47 @@ def _library() -> ctypes.CDLL:
 
     lib = kernels.load("fused_pcg_chunk").lib
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fused_pcg_chunk_launch.argtypes = [ci] * 8 + [vp] * 27
+    lib.fused_pcg_chunk_launch.argtypes = [ci] * 10 + [vp] * 28
     lib.fused_pcg_chunk_launch.restype = ci
-    lib.fused_pcg_chunk_smem_bytes.argtypes = [ci] * 4
+    lib.fused_pcg_chunk_smem_bytes.argtypes = [ci] * 6
     lib.fused_pcg_chunk_smem_bytes.restype = ctypes.c_longlong
     lib.fused_pcg_chunk_smem_optin.argtypes = [ci]
     lib.fused_pcg_chunk_smem_optin.restype = ctypes.c_longlong
+    lib.fused_pcg_chunk_max_clusters.argtypes = [ci] * 6 + [
+        ctypes.POINTER(ci)]
+    lib.fused_pcg_chunk_max_clusters.restype = ci
     return lib
+
+
+@functools.cache
+def b1_schedule(device_index: int, dp: int, np_: int, mw: int, nc: int,
+                cluster: int = B1_CLUSTER) -> ClusterLayout:
+    """The resident kernel's cluster layout on the device, checked against
+    the card once per (device, shape, cluster size) and cached.  Raises
+    when the card cannot hold the cluster: there is no smaller one."""
+    lib = _library()
+    have = lib.fused_pcg_chunk_smem_optin(device_index)
+    if have < 0:
+        raise RuntimeError("cudaDeviceGetAttribute failed")
+    name = torch.cuda.get_device_name(device_index)
+    try:
+        lay = b1_layout(dp, np_, mw, nc, have, cluster)
+    except ValueError as e:
+        raise ValueError(f"{e} on {name} (shared memory)") from None
+    if lib.fused_pcg_chunk_smem_bytes(dp, np_, mw, nc, cluster,
+                                      int(lay.resident)) != lay.smem_bytes:
+        raise RuntimeError("fused_pcg_chunk: chunk_smem_bytes does not "
+                           "mirror the kernel's shared-memory layout")
+    count = ctypes.c_int(0)
+    err = lib.fused_pcg_chunk_max_clusters(dp, np_, mw, nc, cluster,
+                                           int(lay.resident),
+                                           ctypes.byref(count))
+    if err != 0 or count.value < 1:
+        raise RuntimeError(
+            f"fused_pcg_chunk: {name} refuses a cluster of {cluster} blocks "
+            f"at {lay.smem_bytes} B of shared memory each (cudaError_t "
+            f"{err}, {count.value} clusters fit)")
+    return lay
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device):
@@ -591,7 +734,15 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device):
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
-def _launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters):
+B1_TIMERS = ("vt_x", "v_urow", "exchange", "precond", "other")
+
+
+def _launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters,
+            cluster=None, timing=None):
+    """Check, allocate and launch one chunk on a cluster of ``cluster``
+    blocks (default ``B1_CLUSTER``).  ``timing``, an int64 tensor of
+    len(B1_TIMERS) on the device, receives block 0's clock64 cycles per
+    phase kind."""
     dev = rhs.device
     dp, n = rhs.shape
     mw = op.u.shape[-1]
@@ -622,19 +773,14 @@ def _launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters):
                    ("rmat", pre.rmat, (n, nc), _f32)]
     elif pre.rmat is not None:
         raise ValueError("rmat given without cinv")
+    if timing is not None:
+        checks.append(("timing", timing, (len(B1_TIMERS),), torch.int64))
     for name, t, shape, dtype in checks:
         _check(name, t, shape, dtype, dev)
 
     lib = _library()
-    need = lib.fused_pcg_chunk_smem_bytes(dp, n, mw, nc)
-    have = lib.fused_pcg_chunk_smem_optin(dev.index)
-    if have < 0:
-        raise RuntimeError("cudaDeviceGetAttribute failed")
-    if need > have:
-        raise ValueError(
-            f"fused_pcg_chunk: Np={n}, Mw={mw} needs {need} B of shared "
-            f"memory; {torch.cuda.get_device_name(dev)} allows {have} B"
-        )
+    lay = b1_schedule(dev.index or 0, dp, n, mw, nc,
+                      B1_CLUSTER if cluster is None else cluster)
     out = ChunkState(
         x=torch.empty(vec, dtype=_f32, device=dev),
         r=torch.empty(vec, dtype=_f32, device=dev),
@@ -652,6 +798,7 @@ def _launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.fused_pcg_chunk_launch(
         dp, n, mw, nl, nc, chunk_iters, int(maxit), int(bool(restart)),
+        lay.cluster, int(lay.resident),
         ptr(atol2), ptr(st.it), ptr(st.rz), ptr(st.stop),
         ptr(rhs), ptr(st.x), ptr(st.r), ptr(st.p), ptr(st.rt),
         ptr(op.u), ptr(op.tdiag), ptr(op.tupper), ptr(op.tlower),
@@ -659,7 +806,7 @@ def _launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters):
         ptr(pre.cinv), ptr(pre.rmat),
         ptr(out.x), ptr(out.r), ptr(out.p), ptr(out.rt),
         ptr(out.it), ptr(out.rz), ptr(out.stop), ptr(out.rr),
-        stream,
+        ptr(timing), stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_pcg_chunk launch failed: cudaError_t {err}")
@@ -785,8 +932,11 @@ def band_fused_pcg_chunk_ref(
 
 _BAND_DIMS = ("dp", "np", "n_chunks", "k_win", "w_row", "b_dl", "mw",
               "nlevels", "nc", "cover_cap", "chunk_iters", "maxit",
-              "restart", "grid")
-_BAND_PTRS = 30
+              "restart", "grid", "cols")
+_BAND_PTRS = 31
+BAND_TIMERS = ("xwin", "copy_wait", "partial_t", "w_pass", "wide",
+               "gather", "precond", "grid_sync",
+               "other")   # the kernel's timer kinds, in order
 
 
 @functools.cache
@@ -796,38 +946,94 @@ def _band_library() -> ctypes.CDLL:
     from toyslam_torch import kernels
 
     lib = kernels.load("band_fused_pcg_chunk").lib
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.band_fused_pcg_chunk_grid.argtypes = [ci, ci, ci,
-                                              ctypes.POINTER(ci)]
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    pi = ctypes.POINTER(ci)
+    lib.band_fused_pcg_chunk_device.argtypes = [ci, pi, pi]
+    lib.band_fused_pcg_chunk_device.restype = ci
+    lib.band_fused_pcg_chunk_smem_bytes.argtypes = [ci, ci, ci]
+    lib.band_fused_pcg_chunk_smem_bytes.restype = cll
+    lib.band_fused_pcg_chunk_grid.argtypes = [ci, cll, pi]
     lib.band_fused_pcg_chunk_grid.restype = ci
-    lib.band_fused_pcg_chunk_workspace_floats.argtypes = [
-        ctypes.POINTER(ci), ci]
-    lib.band_fused_pcg_chunk_workspace_floats.restype = ctypes.c_longlong
+    lib.band_fused_pcg_chunk_workspace_floats.argtypes = [pi, ci]
+    lib.band_fused_pcg_chunk_workspace_floats.restype = cll
+    lib.band_grid_sync_probe.argtypes = [ci, cll, ci, vp]
+    lib.band_grid_sync_probe.restype = ci
     lib.band_fused_pcg_chunk_launch.argtypes = [
-        ctypes.POINTER(ci), ci, ctypes.POINTER(vp), ci, vp]
+        pi, ci, ctypes.POINTER(vp), ci, vp]
     lib.band_fused_pcg_chunk_launch.restype = ci
     return lib
 
 
-def band_grid_blocks(device: torch.device, w_row: int, b_dl: int) -> int:
-    """Blocks of the band kernel's cooperative grid on ``device``: as many
-    as can be resident at once (at most 4 per SM)."""
+@functools.cache
+def band_schedule(device_index: int, n_chunks: int, k_win: int, dp: int,
+                  w_row: int, b_dl: int,
+                  mw: int) -> tuple[int, BandSlabPlan]:
+    """The band kernel's grid (one block per SM) and slab schedule on the
+    device, for a layout; queried from the card once per (device, layout)
+    and cached."""
+    lib = _band_library()
+    sms, optin = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.band_fused_pcg_chunk_device(device_index, ctypes.byref(sms),
+                                          ctypes.byref(optin))
+    if err != 0:
+        raise RuntimeError(
+            f"band_fused_pcg_chunk: device query failed: cudaError_t {err}")
+    plan = band_slab_plan(n_chunks, k_win, dp, w_row, b_dl, mw, optin.value,
+                          sms.value)
+    if lib.band_fused_pcg_chunk_smem_bytes(plan.rows, plan.cols, mw) \
+            != plan.smem_bytes:
+        raise RuntimeError("band_fused_pcg_chunk: band_smem_bytes does not "
+                           "mirror the kernel's shared-memory layout")
     grid = ctypes.c_int(0)
-    err = _band_library().band_fused_pcg_chunk_grid(
-        device.index or 0, w_row, b_dl, ctypes.byref(grid))
+    err = lib.band_fused_pcg_chunk_grid(device_index, plan.smem_bytes,
+                                        ctypes.byref(grid))
     if err != 0:
         raise RuntimeError(
             f"band_fused_pcg_chunk: occupancy query failed: cudaError_t {err}")
     if grid.value < 1:
         raise ValueError(
             f"band_fused_pcg_chunk: the cooperative grid does not fit on "
-            f"{torch.cuda.get_device_name(device)} (Wrow={w_row}, "
-            f"B*dl={b_dl}: no block can be resident)"
-        )
-    return grid.value
+            f"{torch.cuda.get_device_name(device_index)} ("
+            f"{plan.smem_bytes} B of shared memory per block)")
+    return grid.value, plan
 
 
-def _band_launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters):
+def band_grid_sync_probe(device: torch.device, iters: int) -> None:
+    """Launch ``iters`` grid barriers alone on the band kernel's grid (one
+    block per SM at the 10k layout's shared memory), to time one barrier."""
+    grid, plan = band_schedule(device.index or 0, 39, 2, 3, 512, 512, 2)
+    err = _band_library().band_grid_sync_probe(
+        grid, plan.smem_bytes, iters,
+        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"band_grid_sync_probe failed: cudaError_t {err}")
+
+
+_slab_major_last = None   # (weakref to a stack, its version, cols, copy)
+
+
+def _slab_major(tiles: torch.Tensor, cols: int) -> torch.Tensor:
+    """The tile stack re-laid slab-major, ``[n_chunks, B*dl / cols, K*dp*Wrow,
+    cols]``: each slab the band kernel copies is one contiguous run.  Made
+    once per stack (one read and one write of it on the card) and kept
+    for the last stack while that tensor lives unmodified."""
+    global _slab_major_last
+    if _slab_major_last is not None:
+        ref, version, last_cols, slabs = _slab_major_last
+        if ref() is tiles and tiles._version == version and last_cols == cols:
+            return slabs
+    nch, k_win, dp, w_row, b_dl = tiles.shape
+    slabs = (tiles.reshape(nch, k_win * dp * w_row, b_dl // cols, cols)
+             .permute(0, 2, 1, 3).contiguous())
+    _slab_major_last = (weakref.ref(tiles), tiles._version, cols, slabs)
+    return slabs
+
+
+def _band_launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters,
+                 timing=None):
+    """Check, allocate and launch one band chunk.  ``timing``, an int64
+    tensor [grid, len(BAND_TIMERS)] on the device (grid from
+    :func:`band_schedule`), receives each block's clock64 cycles per kind."""
     dev = rhs.device
     dp, n = rhs.shape
     nch, k_win, _, w_row, b_dl = op.tiles.shape
@@ -839,7 +1045,7 @@ def _band_launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters):
     if dp != 3:
         raise NotImplementedError(
             f"band_fused_pcg_chunk kernel: dp={dp}; only dp=3 (SE(2)) is "
-            "built (dp=6 comes with the SE(3) port, ROADMAP.md A.10)"
+            "built (dp=6 comes with the SE(3) port, ROADMAP.md A.16)"
         )
     if b_dl % 128 or w_row < 1:
         raise ValueError(
@@ -877,17 +1083,24 @@ def _band_launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters):
         _check(name, t, shape, dtype, dev)
 
     lib = _band_library()
-    grid = band_grid_blocks(dev, w_row, b_dl)
+    grid, plan = band_schedule(dev.index or 0, nch, k_win, dp, w_row, b_dl,
+                               mw)
+    if timing is not None:
+        _check("timing", timing, (grid, len(BAND_TIMERS)), torch.int64, dev)
     dims = dict(dp=dp, np=n, n_chunks=nch, k_win=k_win, w_row=w_row,
                 b_dl=b_dl, mw=mw, nlevels=nl, nc=nc, cover_cap=cap,
                 chunk_iters=chunk_iters, maxit=int(maxit),
-                restart=int(bool(restart)), grid=grid)
+                restart=int(bool(restart)), grid=grid, cols=plan.cols)
     c_dims = (ctypes.c_int * len(_BAND_DIMS))(*(dims[k] for k in _BAND_DIMS))
     ws_floats = lib.band_fused_pcg_chunk_workspace_floats(
         c_dims, len(_BAND_DIMS))
     if ws_floats < 0:
         raise ValueError("band_fused_pcg_chunk: the kernel refused the "
                          f"dimensions {dims}")
+    if ws_floats != band_workspace_floats(dp, n, nch, plan, b_dl, mw, nc,
+                                          grid):
+        raise RuntimeError("band_fused_pcg_chunk: band_workspace_floats "
+                           "does not mirror the kernel's workspace layout")
     work = torch.empty(ws_floats, dtype=_f32, device=dev)
     out = ChunkState(
         x=torch.empty(vec, dtype=_f32, device=dev),
@@ -905,9 +1118,11 @@ def _band_launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters):
 
     ptrs = [
         atol2, st.it, st.rz, st.stop, rhs, st.x, st.r, st.p, st.rt,
-        op.tiles, op.win_off, op.cover, op.u, op.tdiag, op.tupper,
+        _slab_major(op.tiles, plan.cols), op.win_off, op.cover, op.u,
+        op.tdiag, op.tupper,
         op.tlower, pre.alphas, pre.gammas, pre.binv, pre.cinv, pre.rmat,
         out.x, out.r, out.p, out.rt, out.it, out.rz, out.stop, out.rr, work,
+        timing,
     ]
     assert len(ptrs) == _BAND_PTRS
     c_ptrs = (ctypes.c_void_p * _BAND_PTRS)(*(ptr(t) for t in ptrs))
