@@ -41,8 +41,24 @@ Run from the root of a checkout.  Phases, each of which must pass:
    the JAX package's f32 plain-PCG values (chi^2 first 10942542 at rtol
    1e-4; final chi^2 6649.81 and ATE 8.7954 within 1 %; dead-reckoning ATE
    53.9930; 80 PCG iterations in each of 15 GN iterations, 120 launches);
-8. its timing: GN-iter/s as the median of 3 optimize() rounds, the ms of
-   each layer, the host set-up seconds and the device time.
+8. its timing: GN-iter/s as the median of 2 optimize() rounds, the ms of
+   each layer, the host set-up seconds and the device time;
+9. both kernels at dp=6 (SE(3) BA) vs their plain versions, held as in
+   phase 2 on seeded systems of the BA paths' shapes: B1 at (Np=128,
+   Mw=1536, L=7) and (Np=64, Mw=768, L=6), B2 on the band layout of the
+   512 x 4096 graph; each timed against its plain version and its bound,
+   with the per-phase clock64 split (lines ``ba_b1_phase_split``,
+   ``ba_band_phase_split``);
+10. the BA path: ``make_ba_problem(128, 512, 24, seed=0)`` with the bench
+   suite's fused row through B1, and ``python -m toyslam_torch ba3d`` at
+   its defaults (in process, U in shared memory), checked against the JAX
+   package's f32 plain-PCG values (``BA_REF``);
+11. its timing: GN-iter/s as the median of 3 optimize() rounds, the ms of
+   each layer and the device time;
+12. the BA scale path: ``make_ba_problem(512, 4096, 24, seed=0)`` with the
+   exp_ba512 fused row and its matched-budget row through B2 (B1 launched
+   no time), checked against ``BA_REF``;
+13. their timing, as in phase 11.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 its path, largest difference from the plain version, ms, plain_ms,
@@ -93,6 +109,59 @@ SCALE_CHI2_FINAL, SCALE_ATE, SCALE_REL = 6649.81, 8.7954, 1e-2
 SCALE_ATE_DR = 53.9930
 SCALE_GN_ITERS, SCALE_PCG_ITERS, SCALE_LAUNCHES = 15, 80, 120
 
+# The SE(3) BA paths: (poses, landmarks, OptimizerConfig fields), 24
+# observations per pose, seed 0.  "ba3d_defaults" is the ba3d subcommand's
+# config; "ba128" the bench suite's fused row (scripts/bench_suite.py);
+# "ba512_policy" and "ba512_matched" the rows of scripts/exp_ba512.py.
+_BA_BENCH = dict(
+    iterations=20, lr=1.0, solver="schur3d", exact_odom_jacobians=True,
+    huber_delta=4.0, pcg_tol=1e-6, pcg_max_iters=200, convergence_eps=1e-8,
+    reject_worse_steps=True, pcg_precond="tridiag", pcg_fused_chunk=16,
+)
+BA_CASES = {
+    "ba3d_defaults": (64, 256, dict(
+        iterations=25, lr=1.0, solver="schur3d", exact_odom_jacobians=True,
+        huber_delta=1e9, pcg_tol=1e-8, pcg_max_iters=400,
+        convergence_eps=1e-8, reject_worse_steps=True)),
+    "ba128": (128, 512, _BA_BENCH),
+    "ba512_policy": (512, 4096, _BA_BENCH),
+    "ba512_matched": (512, 4096, dict(
+        _BA_BENCH, pcg_tol=0.0, pcg_max_iters=64, pcg_restart_every=64)),
+}
+# Their references: the JAX package's f32 plain-PCG (pcg_backend="xla") run
+# of each on the CPU (``python tests/test_torch_ba.py``): chi^2 at GN
+# iteration 0 and at the last, ATE before and after (the JAX package's
+# fused path on the CPU beside it where measured).  These runs are chaotic
+# in f32: the JAX package's own fused and plain paths differ by up to 76 %
+# in chi^2 per iteration on ba3d_defaults, and the end states sit in a flat
+# valley (on ba3d_defaults their float64 cost agrees to 1e-6 while the ATE
+# spans 0.27-0.39; at 512 x 4096 the port's own CPU runs end at ATE
+# 0.40-3.10 with final chi^2 within 1.3 %).  So the port is held to chi^2
+# at iteration 0 (rtol 1e-4: the same graph), chi^2 never rising (LM step
+# rejection), the final chi^2 (rtol ``final_rtol``: 1e-4 where the JAX
+# package's two paths agree to 1e-6, 2 % at 512 x 4096) and, where the
+# valley allows it, an ATE below half the initial one.
+BA_REF = {
+    "ba3d_defaults": dict(chi2=(9062292.0, 2295.708984375),
+                          ate_initial=1.2834193706512451,
+                          ate_final=0.28841283917427063,
+                          fused_chi2_final=2295.70654296875,
+                          fused_ate_final=0.27208057045936584,
+                          final_rtol=1e-4, ate_below=1.2834193706512451 / 2),
+    "ba128": dict(chi2=(1744823.875, 4624.5419921875),
+                  ate_initial=1.5134034156799316,
+                  ate_final=0.16697615385055542,
+                  fused_chi2_final=4624.5380859375,
+                  fused_ate_final=0.14810003340244293,
+                  final_rtol=1e-4, ate_below=1.5134034156799316 / 2),
+    "ba512_policy": dict(chi2=(20788476.0, 13488.2568359375),
+                         ate_initial=3.9674267768859863,
+                         ate_final=0.9365894198417664, final_rtol=2e-2),
+    "ba512_matched": dict(chi2=(20788476.0, 13470.5),
+                          ate_initial=3.9674267768859863,
+                          ate_final=0.4009546637535095, final_rtol=2e-2),
+}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -101,7 +170,7 @@ def log(msg: str) -> None:
 # --- phase 2: the kernel against its plain version ----------------------
 
 
-def synthetic_system(np_, mw, nlevels, nc, eps, seed, device):
+def synthetic_system(np_, mw, nlevels, nc, eps, seed, device, dp=3):
     """A seeded SPD system in the kernel's layout whose CG is slow.
 
     ``T`` is a diagonally dominant block chain with block Cholesky factor
@@ -120,7 +189,6 @@ def synthetic_system(np_, mw, nlevels, nc, eps, seed, device):
     from toyslam_torch.ops import fused_pcg as fp
     from toyslam_torch.ops import schur
 
-    dp = 3
     rng = np.random.default_rng(seed)
     upper = -np.eye(dp)[None] + 0.05 * rng.normal(size=(np_, dp, dp))
     upper[-1] = 0.0
@@ -413,22 +481,30 @@ def phase_main_path(device):
 # --- phase 4: timing ------------------------------------------------------
 
 
-def layer_system(gn, graph):
-    """The GN-iteration-0 solve of the main path split into its layers."""
+def layer_system(gn, graph, mode="resident"):
+    """The GN-iteration-0 solve of a path split into its layers: the main
+    path, or (``solver="schur3d"``) a BA path through the resident or the
+    band operator."""
     import torch
 
     from toyslam_torch.ops import blockmath as bm
     from toyslam_torch.ops import fused_pcg as fp
-    from toyslam_torch.ops import schur
+    from toyslam_torch.ops import schur, schur3d
 
     cfg = gn.config
     lam = torch.tensor(cfg.lambda_init, device=graph.device)
     plan = graph.plan
     state = {}
+    band = mode == "band"
 
     def assemble():
-        state["sys"] = schur.assemble_blocks(graph, cfg.huber_delta,
-                                             cfg.fixed_prior)
+        if cfg.solver == "schur3d":
+            state["sys"] = schur3d.assemble_blocks_3d(
+                graph, cfg.huber_delta, cfg.fixed_prior,
+                exact_odom_jacobians=cfg.exact_odom_jacobians)
+        else:
+            state["sys"] = schur.assemble_blocks(graph, cfg.huber_delta,
+                                                 cfg.fixed_prior)
 
     def eliminate():
         d = schur.damp(state["sys"], lam)
@@ -444,14 +520,14 @@ def layer_system(gn, graph):
             cfg.pcg_precond, cfg.pcg_coarse_group)
 
     def operator():
-        state["op"] = fp.build_fused_operator(state["d"], state["hll_inv"],
-                                              graph)
+        build = fp.build_band_operator if band else fp.build_fused_operator
+        state["op"] = build(state["d"], state["hll_inv"], graph)
 
     def pcg():
-        state["res"] = fp.fused_pcg(state["op"], state["pre"], state["rhs2"],
-                                    cfg.pcg_tol, cfg.pcg_max_iters,
-                                    cfg.pcg_fused_chunk,
-                                    cfg.pcg_restart_every)
+        run = fp.band_fused_pcg if band else fp.fused_pcg
+        state["res"] = run(state["op"], state["pre"], state["rhs2"],
+                           cfg.pcg_tol, cfg.pcg_max_iters,
+                           cfg.pcg_fused_chunk, cfg.pcg_restart_every)
 
     def backsub():
         d = state["d"]
@@ -461,8 +537,9 @@ def layer_system(gn, graph):
     return state, [("assemble_blocks", assemble),
                    ("damp_eliminate_rhs_sdiag", eliminate),
                    ("build_fused_precond", precond),
-                   ("build_fused_operator", operator),
-                   ("fused_pcg", pcg),
+                   ("build_band_operator" if band else "build_fused_operator",
+                    operator),
+                   ("band_fused_pcg" if band else "fused_pcg", pcg),
                    ("back_substitution", backsub)]
 
 
@@ -647,7 +724,7 @@ def random_windows(np_, n_chunks, k_win, seed):
 
 
 def synthetic_band_system(np_, win_off, w_row, b_dl, mw, nlevels, group,
-                          eps, seed, device):
+                          eps, seed, device, dp=3):
     """A seeded SPD system in the band kernel's layout whose CG is slow.
 
     ``T`` is a diagonally dominant block chain.  ``V`` is a tile stack on
@@ -669,7 +746,6 @@ def synthetic_band_system(np_, win_off, w_row, b_dl, mw, nlevels, group,
     from toyslam_torch.ops import fused_pcg as fp
     from toyslam_torch.ops import schur
 
-    dp = 3
     rng = np.random.default_rng(seed)
     upper = 0.05 * rng.normal(size=(np_, dp, dp))
     upper[-1] = 0.0
@@ -994,7 +1070,8 @@ def phase_scale_timing(gn, gdev):
 
     out = {}
     times = []
-    for _ in range(3):
+    # 2 rounds (3 before the BA phases lengthened the smoke)
+    for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = gn.optimize(gdev)
@@ -1008,6 +1085,219 @@ def phase_scale_timing(gn, gdev):
     for name, fn in layers[:2]:
         fn()
     full_precond()
+    out["layer_ms"] = {name: cuda_ms(fn, 3) for name, fn in layers}
+    out["pcg_iters_iter0"] = int(state["res"].iterations)
+    out["device"] = device_time(gn, gdev, out["optimize_s_median"], reps=1)
+    return out
+
+
+
+# --- phases 9-13: the SE(3) BA paths at dp=6 -------------------------------
+
+
+def phase_ba_kernels(device):
+    """B1 and B2 at dp=6 against their plain versions on the card, on
+    seeded systems of the BA paths' shapes where CG is far from converged
+    after a chunk: B1 at (Np=128, Mw=1536, L=7), the bench row, and at
+    (Np=64, Mw=768, L=6), the ba3d defaults; B2 on the tile-stack layout
+    that the band search gives the 512-pose, 4096-point graph.  Each a
+    fresh and a carried chunk, held as in phase 2; each timed against its
+    plain version and its bound."""
+    import torch
+
+    from toyslam_torch.ops import fused_pcg as fp
+    from toyslam_torch.ops.gather_plan import attach_plan
+    from toyslam_torch.sim import synthetic3d
+
+    out, times, bounds = [], {}, {}
+    for i, (name, np_, mw, nl) in enumerate([
+            ("dp6_Np128_Mw1536_L7", 128, 1536, 7),
+            ("dp6_Np64_Mw768_L6", 64, 768, 6)]):
+        op, pre, rhs = synthetic_system(np_, mw, nl, 0, 1e-2, seed=10 + i,
+                                        device=device, dp=6)
+        out += compare_chunks(name, op, pre, rhs)
+        times[name] = chunk_times(op, pre, rhs)
+        bounds[name] = chunk_bound(op, pre, rhs, 16)
+        times[name]["resident"] = fp.b1_schedule(
+            device.index or 0, 6, np_, mw, 0).resident
+        log("ba_b1_phase_split " + json.dumps({name: b1_phase_split(
+            op, pre, rhs, 16, statistics.mean(times[name]["kernel"]))}))
+    graph = attach_plan(synthetic3d.make_ba_problem(512, 4096, 24,
+                                                    seed=0)[0])
+    band = graph.plan.band
+    nlevels = max(1, (graph.num_poses - 1).bit_length())
+    sop, spre, srhs = synthetic_band_system(
+        graph.num_poses, band.win_off.cpu().numpy(), band.w_row,
+        band.chunk_b * 3, 3 * band.n_wide, nlevels, 0, 2e-2, seed=12,
+        device=device, dp=6)
+    name = "dp6_ba512_band"
+    out += compare_chunks(name, sop, spre, srhs, kernel="band_fused_pcg_chunk")
+    times[name] = chunk_times(sop, spre, srhs, kernel="band_fused_pcg_chunk",
+                              reps=10)
+    bounds[name] = chunk_bound(sop, spre, srhs, 16)
+    grid, plan = fp.band_schedule(device.index or 0, *sop.tiles.shape[:2], 6,
+                                  *sop.tiles.shape[3:],
+                                  0 if sop.u is None else sop.u.shape[1])
+    # where a dp=6 chunk's time goes: B2's blocks, B1's block 0
+    log("ba_band_phase_split " + json.dumps(band_phase_split(
+        sop, spre, srhs, 16, statistics.mean(times[name]["kernel"]))))
+    shapes = {"tiles": list(sop.tiles.shape), "n_wide": band.n_wide,
+              "pcr_levels": nlevels, "grid": grid, "slab_rows": plan.rows,
+              "slab_cols": plan.cols, "slabs_per_chunk": plan.slabs_per_chunk,
+              "slabs_per_block": plan.slabs_per_block,
+              "smem_bytes": plan.smem_bytes}
+    del sop, spre, srhs
+    torch.cuda.empty_cache()
+    for r in out:
+        log("ba_kernel_check " + json.dumps(r))
+    log("ba_band_layout " + json.dumps(shapes))
+    log("ba_kernel_chunk_ms " + json.dumps(times))
+    log("ba_kernel_bound " + json.dumps(bounds))
+    bad = [r for r in out if not r["ok"]]
+    if bad:
+        raise AssertionError(f"dp=6 kernel disagrees with plain version: {bad}")
+    b1 = [r["max_abs_err"] for r in out if r["case"].startswith("dp6_Np")]
+    b2 = [r["max_abs_err"] for r in out if r["case"] == name]
+    return {"b1_max_abs": max(b1), "b2_max_abs": max(b2), "ms": times,
+            "bound": bounds}
+
+
+def ba_optimize(case, device):
+    """One BA path: the seeded graph, ``GaussNewton(...).optimize`` on the
+    card with the launch counts set to 0 just before and read just after,
+    and its metrics."""
+    import numpy as np
+
+    from toyslam_torch.config import OptimizerConfig
+    from toyslam_torch.ops import fused_pcg as fp
+    from toyslam_torch.optimizer import GaussNewton
+    from toyslam_torch.sim import synthetic3d
+
+    poses, landmarks, kw = BA_CASES[case]
+    t0 = time.perf_counter()
+    graph, gt, _ = synthetic3d.make_ba_problem(poses, landmarks, 24, seed=0)
+    gn = GaussNewton(OptimizerConfig(**kw))
+    graph = gn._prepare(graph)          # gather tables and band layout
+    host_s = time.perf_counter() - t0
+    gdev = graph.to(device)
+    mode = fp.fused_mode(gn.config, gdev)
+    reset_counts()
+    t1 = time.perf_counter()
+    res = gn.optimize(gdev)
+    est = res.graph.poses.cpu().numpy()
+    first_s = time.perf_counter() - t1
+    launches = read_counts()
+    it = res.iterations_run
+    errors = res.errors.cpu().numpy()[:it]
+    ref = BA_REF[case]
+    m = {
+        "case": case, "mode": mode, "poses_padded": graph.num_poses,
+        "landmarks": int(graph.lm_mask.sum()),
+        "reproj_edges": int(graph.lm_edges.mask.sum()),
+        "host_graph_plan_s": host_s, "first_optimize_s": first_s,
+        "iterations_run": it, "chi2": errors.tolist(),
+        "pcg_iters": res.pcg_iters[:it].tolist(),
+        "ate_initial": synthetic3d.pose_ate_rmse(
+            graph.poses[:poses].numpy(), gt),
+        "ate_final": synthetic3d.pose_ate_rmse(est[:poses], gt),
+        "kernel_launches": launches,
+        "finite": bool(np.isfinite(est).all() and np.isfinite(errors).all()),
+        "reference": ref,
+    }
+    b1, b2 = (launches["fused_pcg_chunk"], launches["band_fused_pcg_chunk"])
+    checks = {
+        "kernel": (b1 > 0 and b2 == 0) if mode == "resident"
+        else (b2 > 0 and b1 == 0),
+        "finite": m["finite"],
+        "chi2_first": math.isclose(errors[0], ref["chi2"][0], rel_tol=1e-4),
+        # LM with step rejection: chi^2 never rises
+        "chi2 non-increasing": bool(np.all(np.diff(errors) <= 0.0)),
+        "chi2_final": math.isclose(errors[-1], ref["chi2"][-1],
+                                   rel_tol=ref["final_rtol"]),
+    }
+    if "ate_below" in ref:
+        checks["ate_final"] = m["ate_final"] < ref["ate_below"]
+    m["checks"] = checks
+    log("ba_path " + json.dumps(m))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"BA path {case} checks failed: {failed}")
+    return m, gn, res.graph.with_state(gdev.poses, gdev.landmarks)
+
+
+def phase_ba_path(device):
+    """The bench row at 128 x 512 through B1, and ``python -m toyslam_torch
+    ba3d`` at its defaults, in process, through B1 with U in shared
+    memory."""
+    import contextlib
+    import io
+
+    from toyslam_torch import app
+    from toyslam_torch.ops import fused_pcg as fp
+
+    m, gn, gdev = ba_optimize("ba128", device)
+    assert m["mode"] == "resident"
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = app.main(["ba3d"])
+    launches = read_counts()
+    cli = json.loads(buf.getvalue().strip().splitlines()[-1])
+    ref = BA_REF["ba3d_defaults"]
+    cli["kernel_launches_by_kernel"] = launches
+    cli["resident_u_in_smem"] = fp.b1_schedule(
+        device.index or 0, 6, 64, 3 * cli["landmarks"], 0).resident
+    checks = {
+        "exit 0": code == 0,
+        "device": cli["device"] == "cuda",
+        "B1 only": launches["fused_pcg_chunk"] == cli["kernel_launches"] > 0
+        and launches["band_fused_pcg_chunk"] == 0,
+        "U in shared memory": cli["resident_u_in_smem"],
+        "chi2_first": math.isclose(cli["chi2_first"], ref["chi2"][0],
+                                   rel_tol=1e-4),
+        "chi2_final": math.isclose(cli["chi2_final"], ref["chi2"][-1],
+                                   rel_tol=ref["final_rtol"]),
+        "ate_initial": abs(cli["ate_initial"] - ref["ate_initial"]) <= 1e-4,
+        "ate_final": cli["ate_final"] < ref["ate_below"],
+    }
+    cli["checks"] = checks
+    log("ba3d_cli " + json.dumps(cli))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"ba3d CLI checks failed: {failed}")
+    return {"ba128": m, "ba3d_defaults": cli}, gn, gdev
+
+
+def phase_ba_scale_path(device):
+    """512 poses x 4096 points through B2 (B1 at zero launches): the
+    exp_ba512 fused row and its matched-budget row."""
+    out = {}
+    for case in ("ba512_policy", "ba512_matched"):
+        m, gn, gdev = ba_optimize(case, device)
+        assert m["mode"] == "band"
+        out[case] = (m, gn, gdev)
+    return out
+
+
+def path_timing(gn, gdev, mode, rounds=3):
+    """GN-iter/s as the median of ``rounds`` optimize() calls fenced with
+    torch.cuda.synchronize(), the ms of each layer of the GN-iteration-0
+    solve (CUDA events), and the device time from torch.profiler."""
+    import torch
+
+    out = {}
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = gn.optimize(gdev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["optimize_s_rounds"] = times
+    out["optimize_s_median"] = statistics.median(times)
+    out["gn_iter_per_s"] = r.iterations_run / statistics.median(times)
+    out["iterations_run"] = r.iterations_run
+    state, layers = layer_system(gn, gdev, mode)
     out["layer_ms"] = {name: cuda_ms(fn, 3) for name, fn in layers}
     out["pcg_iters_iter0"] = int(state["res"].iterations)
     out["device"] = device_time(gn, gdev, out["optimize_s_median"], reps=1)
@@ -1073,6 +1363,17 @@ def main() -> int:
             band=phase_band_kernels(state["sgn"], state["sgdev"]))),
         ("scale_timing", lambda: state.update(
             scale_timing=phase_scale_timing(state["sgn"], state["sgdev"]))),
+        ("ba_kernels", lambda: state.update(
+            ba_kernels=phase_ba_kernels(device))),
+        ("ba_path", lambda: state.update(
+            zip(("ba", "bgn", "bgdev"), phase_ba_path(device)))),
+        ("ba_timing", lambda: state.update(ba_timing=path_timing(
+            state["bgn"], state["bgdev"], "resident"))),
+        ("ba_scale_path", lambda: state.update(
+            ba_scale=phase_ba_scale_path(device))),
+        ("ba_scale_timing", lambda: state.update(ba_scale_timing={
+            case: path_timing(gn, gdev, "band")
+            for case, (_, gn, gdev) in state["ba_scale"].items()})),
     ]
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -1082,7 +1383,7 @@ def main() -> int:
         except Exception:  # report every phase, then fail as a whole
             failures.append(name)
             log(f"phase {name}: FAILED\n{traceback.format_exc()}")
-    for key in ("timing", "scale_timing"):
+    for key in ("timing", "scale_timing", "ba_timing", "ba_scale_timing"):
         if key in state:
             log(f"{key} " + json.dumps(state[key]))
     if failures:
@@ -1110,6 +1411,30 @@ def main() -> int:
         bound_by=state["band"]["bound"]["bound_by"],
         library_ms=None,
     )
+    # the dp=6 instances, on the BA paths: B1 on the bench row (128 x 512)
+    # and the ba3d defaults, B2 on the two 512 x 4096 rows; timed at the
+    # bench row's and at the 512 x 4096 layout's shapes
+    bk = state["ba_kernels"]
+    b1_case, b2_case = "dp6_Np128_Mw1536_L7", "dp6_ba512_band"
+    ba_b1 = {"ba128": state["ba"]["ba128"]["kernel_launches"][
+        "fused_pcg_chunk"],
+        "ba3d_defaults": state["ba"]["ba3d_defaults"]["kernel_launches"]}
+    ba_b2 = {case: m["kernel_launches"]["band_fused_pcg_chunk"]
+             for case, (m, _, _) in state["ba_scale"].items()}
+    b1["dp6"] = dict(
+        launches=sum(ba_b1.values()), launches_by_path=ba_b1,
+        max_abs_err=bk["b1_max_abs"],
+        ms=statistics.mean(bk["ms"][b1_case]["kernel"]),
+        plain_ms=statistics.mean(bk["ms"][b1_case]["plain"]),
+        bound_ms=bk["bound"][b1_case]["bound_ms"],
+        bound_by=bk["bound"][b1_case]["bound_by"], library_ms=None)
+    b2["dp6"] = dict(
+        launches=sum(ba_b2.values()), launches_by_path=ba_b2,
+        max_abs_err=bk["b2_max_abs"],
+        ms=statistics.mean(bk["ms"][b2_case]["kernel"]),
+        plain_ms=statistics.mean(bk["ms"][b2_case]["plain"]),
+        bound_ms=bk["bound"][b2_case]["bound_ms"],
+        bound_by=bk["bound"][b2_case]["bound_by"], library_ms=None)
     log(json.dumps({"kernels": [b1, b2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -66,12 +66,16 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'toyslam_tpu')]\n"
+        "ba = ['se3', 'residuals3d', 'edge_blocks3d', 'schur3d']\n"
+        "assert all('toyslam_torch.ops.' + m in sys.modules for m in ba)\n"
+        "assert 'toyslam_torch.models.graph3d' in sys.modules\n"
+        "assert 'toyslam_torch.sim.synthetic3d' in sys.modules\n"
         "print(len([k for k in sys.modules if k.startswith('toyslam_torch')]))\n"
         "sys.exit(1 if bad else 0)\n"
     )
     proc = _python("-c", code)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15   # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 21   # every module was imported
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
@@ -84,3 +88,18 @@ def test_chip_smoke_fails_without_a_gpu(tmp_path):
     proc = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_cli_ba3d_runs_on_the_card_by_default_and_refuses_a_missing_gpu():
+    from toyslam_torch.app import build_parser
+
+    args = build_parser().parse_args(["ba3d"])
+    assert args.device == "cuda"
+    assert (args.poses, args.landmarks, args.obs, args.iterations,
+            args.huber, args.seed) == (64, 256, 24, 25, 1e9, 0)
+    code = ("import torch, sys; from toyslam_torch.app import main; "
+            "torch.cuda.is_available = lambda: False; "
+            "sys.exit(main(['ba3d', '--poses', '8']))")
+    proc = _python("-c", code)
+    assert proc.returncode == 2 and "no CUDA device" in proc.stderr
+    assert proc.stdout == ""

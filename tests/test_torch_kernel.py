@@ -29,27 +29,32 @@ from toyslam_torch.sim import frontend
 torch.set_num_threads(1)
 
 
-def _tiny_system(np_=16, mw=8, nc=0, seed=0):
+def _tiny_system(np_=16, mw=8, nc=0, seed=0, dp=3):
     """A small SPD system in the kernel layout, block-Jacobi preconditioned,
     with an optional coarse level over ``nc`` groups."""
     rng = np.random.default_rng(seed)
-    eye = torch.eye(3)[..., None].expand(3, 3, np_)
-    up = torch.zeros(3, 3, np_)
-    up[:, :, :-1] = -0.5 * torch.eye(3)[..., None]
+    eye = torch.eye(dp)[..., None].expand(dp, dp, np_)
+    up = torch.zeros(dp, dp, np_)
+    up[:, :, :-1] = -0.5 * torch.eye(dp)[..., None]
+    # dp=6: V V^T kept well inside T at the BA widths (SPD, slow CG)
+    scale = 0.05 if dp == 3 else 0.05 * (24.0 / (dp * mw)) ** 0.5
     op = fp.FusedOperator(
-        u=torch.tensor(rng.normal(0.0, 0.05, (3, np_, mw)), dtype=torch.float32),
+        u=torch.tensor(rng.normal(0.0, scale, (dp, np_, mw)),
+                       dtype=torch.float32),
         tdiag=(4.0 * eye).contiguous(), tupper=up,
         tlower=torch.roll(up.transpose(0, 1), 1, dims=-1).contiguous())
     cinv = rmat = None
     if nc:
         rmat = (torch.arange(np_)[:, None] // (np_ // nc)
                 == torch.arange(nc)[None]).float()
-        c = torch.tensor(rng.normal(size=(3 * nc, 3 * nc)), dtype=torch.float32)
-        cinv = (0.01 * c @ c.T).reshape(3, nc, 3, nc).permute(0, 2, 1, 3)
+        c = torch.tensor(rng.normal(size=(dp * nc, dp * nc)),
+                         dtype=torch.float32)
+        cinv = (0.01 * c @ c.T).reshape(dp, nc, dp, nc).permute(0, 2, 1, 3)
         cinv = cinv.contiguous()
-    pre = fp.FusedPrecond(torch.zeros(0, 3, 3, np_), torch.zeros(0, 3, 3, np_),
+    pre = fp.FusedPrecond(torch.zeros(0, dp, dp, np_),
+                          torch.zeros(0, dp, dp, np_),
                           (0.25 * eye).contiguous(), cinv, rmat)
-    rhs = torch.tensor(rng.normal(size=(3, np_)), dtype=torch.float32)
+    rhs = torch.tensor(rng.normal(size=(dp, np_)), dtype=torch.float32)
     return op, pre, rhs
 
 
@@ -94,8 +99,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         op = op._replace(tupper=op.tupper.transpose(0, 1))
     elif bad == "rmat":
         pre = pre._replace(rmat=torch.zeros(16, 2))
-    else:
-        rhs = torch.zeros(6, 16)
+    else:   # a pose block size the kernel is not built for
+        rhs = torch.zeros(5, 16)
     with pytest.raises((TypeError, ValueError, NotImplementedError)):
         fp._launch(op, pre, rhs, st, atol2, 50, True, 4)
 
@@ -294,7 +299,28 @@ def test_kernel_refuses_more_shared_memory_than_the_card_has(cuda):
                            atol2, 50, True, 4)
 
 
-def _tiny_band(np_=300, seed=0, n_chunks=2, w_row=128, b_dl=128):
+@pytest.mark.parametrize("kernel", ["resident", "band"])
+def test_dp6_wrapper_on_cpu_runs_plain_version_uncounted(kernel):
+    """SE(3) pose blocks (dp=6): on the CPU both wrappers run their plain
+    versions, count no launch, and CG makes progress."""
+    if kernel == "resident":
+        op, pre, rhs = _tiny_system(np_=64, mw=96, dp=6)
+        fn, ref_fn = fp.fused_pcg_chunk, fp.fused_pcg_chunk_ref
+    else:
+        op, pre, rhs = _tiny_band(np_=300, dp=6)
+        fn, ref_fn = fp.band_fused_pcg_chunk, fp.band_fused_pcg_chunk_ref
+    st, atol2 = _start(rhs)
+    before = fn.launches
+    a = fn(op, pre, rhs, st, atol2, 50, True, 4)
+    b = ref_fn(op, pre, rhs, st, atol2, 50, True, 4)
+    assert fn.launches == before
+    for name in fp.ChunkState._fields:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert int(a.it) == 4 and int(a.stop) == 0
+    assert float(a.rr) < float(st.rr)
+
+
+def _tiny_band(np_=300, seed=0, n_chunks=2, w_row=128, b_dl=128, dp=3):
     """A small SPD band system (K=2 windows per chunk, two wide columns),
     block-Jacobi preconditioned.  Two chunks: windows at 0, 128, 128, 256
     (one past Np); more: windows at random multiples of 128."""
@@ -310,22 +336,23 @@ def _tiny_band(np_=300, seed=0, n_chunks=2, w_row=128, b_dl=128):
     def f32(a):
         return torch.tensor(np.asarray(a), dtype=torch.float32)
 
-    eye = torch.eye(3)[..., None].expand(3, 3, np_)
-    up = torch.zeros(3, 3, np_)
-    up[:, :, :-1] = -0.5 * torch.eye(3)[..., None]
+    eye = torch.eye(dp)[..., None].expand(dp, dp, np_)
+    up = torch.zeros(dp, dp, np_)
+    up[:, :, :-1] = -0.5 * torch.eye(dp)[..., None]
     op = fp.BandOperator(
         tiles=f32(rng.normal(0.0, 0.01 * (128 / b_dl) ** 0.5
-                             * (2 / n_chunks) ** 0.5,
-                             (n_chunks, 2, 3, w_row, b_dl))),
+                             * (2 / n_chunks) ** 0.5 * (3 / dp) ** 0.5,
+                             (n_chunks, 2, dp, w_row, b_dl))),
         win_off=torch.as_tensor(win_off),
         cover=torch.as_tensor(
-            band_plan._window_cover(win_off, np_, w_row, 3).astype(np.int32)),
-        u=f32(rng.normal(0.0, 0.02, (3, 2, np_))),
+            band_plan._window_cover(win_off, np_, w_row, dp).astype(np.int32)),
+        u=f32(rng.normal(0.0, 0.02, (dp, 2, np_))),
         tdiag=(4.0 * eye).contiguous(), tupper=up,
         tlower=torch.roll(up.transpose(0, 1), 1, dims=-1).contiguous())
-    pre = fp.FusedPrecond(torch.zeros(0, 3, 3, np_), torch.zeros(0, 3, 3, np_),
+    pre = fp.FusedPrecond(torch.zeros(0, dp, dp, np_),
+                          torch.zeros(0, dp, dp, np_),
                           (0.25 * eye).contiguous(), None, None)
-    return op, pre, f32(rng.normal(size=(3, np_)))
+    return op, pre, f32(rng.normal(size=(dp, np_)))
 
 
 @pytest.mark.cuda
@@ -398,3 +425,41 @@ def test_main_path_on_gpu_goes_through_the_kernel(cuda):
     assert abs(ate - 0.7552) <= 2e-3
     np.testing.assert_allclose(res.errors[0].item(), 228733.5, rtol=1e-4)
     np.testing.assert_allclose(res.errors[-1].item(), 27524.9, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("np_,mw,restart", [
+    (64, 768, True), (64, 768, False), (128, 1536, True), (128, 1536, False),
+])
+def test_dp6_resident_kernel_matches_plain_version(cuda, np_, mw, restart):
+    """fused_pcg_chunk_kernel<6> at the BA shapes: Np=64, Mw=768 (the ba3d
+    defaults: U slice in shared memory) and Np=128, Mw=1536 (the bench
+    row: 768 elements on 576 threads, U from L2)."""
+    op, pre, rhs = _tiny_system(np_=np_, mw=mw, nc=2, dp=6)
+    lay = fp.b1_schedule(cuda.index or 0, 6, np_, mw, 2)
+    assert lay.resident == (np_ == 64)
+    _compare(_to(op, cuda), _to(pre, cuda), rhs.to(cuda), restart, chunk=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("restart", [True, False])
+def test_dp6_band_kernel_matches_plain_version(cuda, restart):
+    """band_fused_pcg_chunk_kernel<6>: 60 chunks x 2 windows x 6 components
+    x 256 rows, more slabs than blocks."""
+    op, pre, rhs = _tiny_band(np_=1000, n_chunks=60, w_row=256, dp=6)
+    op, pre, rhs = _to(op, cuda), _to(pre, cuda), rhs.to(cuda)
+    st, atol2 = _start(rhs)
+    if not restart:
+        st = fp.band_fused_pcg_chunk_ref(op, pre, rhs, st, atol2, 200, True, 8)
+    before = fp.band_fused_pcg_chunk.launches
+    ker = fp.band_fused_pcg_chunk(op, pre, rhs, st, atol2, 200, restart, 8)
+    again = fp.band_fused_pcg_chunk(op, pre, rhs, st, atol2, 200, restart, 8)
+    torch.cuda.synchronize()
+    assert fp.band_fused_pcg_chunk.launches == before + 2
+    ref = fp.band_fused_pcg_chunk_ref(op, pre, rhs, st, atol2, 200, restart, 8)
+    assert int(ker.it) == int(ref.it) and int(ker.stop) == int(ref.stop)
+    assert float((ker.x - ref.x).abs().max() / ref.x.abs().max()) <= 1e-4
+    assert float((ker.rt - ref.rt).abs().max()) <= \
+        1e-4 * float(rhs.abs().max())
+    for name in fp.ChunkState._fields:
+        assert torch.equal(getattr(ker, name), getattr(again, name)), name

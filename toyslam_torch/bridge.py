@@ -1,11 +1,12 @@
 """Graph state across packages.
 
 A SLAM system has no weights: the state both sides must share is the graph
-(poses, landmarks, edges and, once attached, the gather tables).
-:func:`graph_from_arrays` reads any object with the ``FactorGraph2D``
-attribute protocol — numpy arrays, device arrays of another framework, or
-this package's own tensors — through ``np.asarray`` and returns this
-package's graph.
+(poses, landmarks, edges and, once attached, the gather tables and the band
+layout).  :func:`graph_from_arrays` reads any object with the
+``FactorGraph2D`` attribute protocol, and :func:`graph3d_from_arrays` any
+with the ``FactorGraph3D`` one (numpy arrays, device arrays of another
+framework, or this package's own tensors), through ``np.asarray``, and
+return this package's graph.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from toyslam_torch.models.graph import FactorGraph2D, graph_from_numpy
+from toyslam_torch.models.graph3d import FactorGraph3D, graph3d_from_numpy
 from toyslam_torch.ops import gather_plan as gp
 from toyslam_torch.ops.band_plan import BandAux, band_aux_from_arrays
 
@@ -74,6 +76,24 @@ def graph_from_arrays(g, device="cpu") -> FactorGraph2D:
         tuple(_np(a) for a in (o.i, o.j, o.meas, o.info, o.mask)),
         tuple(_np(a) for a in (l.pose, l.lm, l.meas, l.info, l.mask)),
         device=device,
+    )
+    plan = getattr(g, "plan", None)
+    if plan is not None:
+        graph = dataclasses.replace(graph, plan=plan_from_arrays(plan, device))
+    return graph
+
+
+def graph3d_from_arrays(g, device="cpu") -> FactorGraph3D:
+    """This package's SE(3) BA graph, on ``device``, from any
+    ``FactorGraph3D``-like object; its ``plan``, if any, comes along (with
+    a band layout, its ``(dp, dl) = (6, 3)`` geometry)."""
+    o, l = g.odom, g.lm_edges
+    graph = graph3d_from_numpy(
+        _np(g.poses), _np(g.landmarks), _np(g.pose_mask), _np(g.lm_mask),
+        _np(g.pose_fixed), _np(g.lm_fixed),
+        tuple(_np(a) for a in (o.i, o.j, o.meas, o.info, o.mask)),
+        tuple(_np(a) for a in (l.pose, l.lm, l.meas, l.info, l.mask)),
+        _np(g.intrinsics), device=device,
     )
     plan = getattr(g, "plan", None)
     if plan is not None:

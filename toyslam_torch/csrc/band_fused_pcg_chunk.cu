@@ -65,6 +65,12 @@
 // per-block partials summed in block order by every block.  Runs repeat bit
 // for bit at one grid size.
 //
+// Instantiated for DP = 3 (SE(2) poses) and DP = 6 (SE(3) bundle
+// adjustment); the C entry points dispatch on dp.  At the 512-pose,
+// 4096-point BA graph a chunk holds K*DP*Wrow = 4*6*128 = 3072 rows, so a
+// slab is 16 columns wide (24 slabs per chunk) and each block owns four
+// poses in the per-pose phases.
+//
 // Built with nvcc for sm_90a, WITHOUT --use_fast_math: the breakdown test
 // needs isfinite() to see NaN/inf, and alpha/beta need IEEE division.
 
@@ -895,9 +901,18 @@ __global__ void __launch_bounds__(kThreads, 1) grid_sync_probe_kernel(int iters)
 
 // dims: dp np n_chunks k_win w_row b_dl mw nlevels nc cover_cap chunk_iters
 // maxit restart grid cols
+using KernelFn = void (*)(Params);
+
+// The instantiation for a pose block size (null for one that is not built).
+KernelFn kernel_for(int dp) {
+  if (dp == 3) return band_fused_pcg_chunk_kernel<3>;
+  if (dp == 6) return band_fused_pcg_chunk_kernel<6>;
+  return nullptr;
+}
+
 bool valid_dims(const int* d) {
   const long long rows = (long long)d[3] * d[0] * d[4];
-  return d[0] == 3 && d[1] >= 1 && d[2] >= 1 && d[3] >= 1 && d[4] >= 1 &&
+  return kernel_for(d[0]) != nullptr && d[1] >= 1 && d[2] >= 1 && d[3] >= 1 && d[4] >= 1 &&
          d[5] >= 128 && d[5] % 128 == 0 && d[6] >= 0 && d[7] >= 0 &&
          d[7] < 62 && d[8] >= 0 && d[9] >= 1 && d[10] >= 0 && d[12] >= 0 &&
          d[13] >= 1 && d[14] >= 4 && d[14] % 4 == 0 && d[14] <= 4 * kThreads &&
@@ -922,26 +937,28 @@ long long band_fused_pcg_chunk_smem_bytes(int rows, int cols, int mw) {
   return (long long)smem_layout(rows, cols, mw).total;
 }
 
-// Blocks of the cooperative grid on `device` at `smem_bytes` per block: one
-// per SM, or 0 when no block fits or the device cannot launch cooperatively.
-// Returns a cudaError_t.
-int band_fused_pcg_chunk_grid(int device, long long smem_bytes, int* grid) {
+// Blocks of the cooperative grid of the dp instantiation on `device` at
+// `smem_bytes` per block: one per SM, or 0 when no block fits or the device
+// cannot launch cooperatively.  Returns a cudaError_t.
+int band_fused_pcg_chunk_grid(int dp, int device, long long smem_bytes, int* grid) {
   *grid = 0;
+  const KernelFn kernel = kernel_for(dp);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   int sms = 0, coop = 0;
   cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return 0;
-  err = cudaFuncSetAttribute(band_fused_pcg_chunk_kernel<3>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(grid_sync_probe_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, band_fused_pcg_chunk_kernel<3>, kThreads, (size_t)smem_bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                      (size_t)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   *grid = per_sm >= 1 ? sms : 0;
   return 0;
@@ -967,7 +984,8 @@ int band_grid_sync_probe(int grid, long long smem_bytes, int iters, void* stream
   return (int)cudaGetLastError();
 }
 
-// Launch one chunk on `stream` as a cooperative grid of dims[13] blocks.
+// Launch one chunk of the dims[0] instantiation (dp = 3 or 6) on `stream` as
+// a cooperative grid of dims[13] blocks.
 // ptrs: atol2 it rz stop rhs x r p rt | tiles win_off cover u td tu tl
 // alphas gammas binv cinv rmat | x r p rt it rz stop rr (outputs) |
 // workspace | timing (or null).  Returns a cudaError_t (0 = launched).
@@ -1049,12 +1067,12 @@ int band_fused_pcg_chunk_launch(const int* dims, int ndims, void* const* ptrs,
   P.partials = ws + L.partials;
 
   const size_t bytes = smem_layout(rows, cols, mw).total;
+  const KernelFn kernel = kernel_for(dp);
   cudaError_t err = cudaFuncSetAttribute(
-      band_fused_pcg_chunk_kernel<3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&P};
-  err = cudaLaunchCooperativeKernel((const void*)band_fused_pcg_chunk_kernel<3>,
+  err = cudaLaunchCooperativeKernel((const void*)kernel,
                                     dim3(grid), dim3(kThreads), args, bytes,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;

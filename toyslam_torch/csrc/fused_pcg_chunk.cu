@@ -46,9 +46,15 @@
 //     the same instructions on the same bits give the same bits, so every
 //     block takes the same alpha, beta and stop without further exchange.
 //     576 threads give each of the 576 state elements at 150 poses its own
-//     thread, which loads its PCR planes four levels ahead.
+//     thread, which loads its PCR planes four levels ahead (one at DP = 6).
 // A launch the card refuses (the cluster does not fit) returns its error;
 // there is no smaller cluster and no one-block fallback.
+//
+// Instantiated for DP = 3 (SE(2) poses) and DP = 6 (SE(3) bundle
+// adjustment); the C entry points dispatch on dp.  At DP = 6 the BA graphs
+// have Np = 64 (384 elements, one per thread, U slice in shared memory) or
+// Np = 128 (768 elements: every per-element loop strides by the block, and
+// the 295 KB U slice is read from L2).
 //
 // Determinism: no atomics; every sum has a fixed order (block_sum2, the
 // partials in block order).  Runs repeat bit for bit at one cluster size.
@@ -69,7 +75,13 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRedFloats = 2 * kWarps + 2;
 constexpr int kMaxCluster = 16;
 constexpr int kHeldLevels = 16;  // PCR levels of the unrolled, ring-loaded path
-constexpr int kAhead = 4;        // levels between loading a level's planes and using them
+// Levels between loading a level's planes and using them.  The ring holds
+// 2 (kAhead + 1) DP coefficients per thread, within the 96 registers ptxas
+// gives a thread of a 576-thread block: 30 floats at DP=3 (depth 4; the
+// depth changed nothing measurable there); at DP=6 depths 3, 2 and 1 spill
+// 188, 108 and 4 bytes (ptxas, sm_90a), so DP=6 takes depth 1.
+template <int DP>
+__host__ __device__ constexpr int ahead_levels() { return DP == 3 ? 4 : 1; }
 
 struct Params {
   int np, mw, nlevels, nc, chunk_iters, maxit, restart;
@@ -389,6 +401,7 @@ __device__ void precond(const Params& P, const float* __restrict__ r,
   if (one && L <= kHeldLevels) {
     // one element per thread: its planes are loaded kAhead levels ahead
     // into a ring, so their latency hides behind that many levels
+    constexpr int kAhead = ahead_levels<DP>();
     float ca[kAhead + 1][DP], cg[kAhead + 1][DP];
 #pragma unroll
     for (int l = 0; l < kAhead; ++l)
@@ -616,12 +629,22 @@ cudaLaunchConfig_t launch_config(int cluster, size_t bytes, cudaStream_t stream,
   return cfg;
 }
 
-cudaError_t set_attributes(int cluster, size_t bytes) {
+using KernelFn = void (*)(Params);
+
+// The instantiation for a pose block size (null for one that is not built).
+KernelFn kernel_for(int dp) {
+  if (dp == 3) return fused_pcg_chunk_kernel<3>;
+  if (dp == 6) return fused_pcg_chunk_kernel<6>;
+  return nullptr;
+}
+
+// Attributes are per instantiation: set on the one that will be queried or
+// launched.
+cudaError_t set_attributes(KernelFn kernel, int cluster, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_pcg_chunk_kernel<3>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(fused_pcg_chunk_kernel<3>,
-                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
                               cluster > 8 ? 1 : 0);
 }
 
@@ -646,22 +669,26 @@ long long fused_pcg_chunk_smem_optin(int device) {
   return v;
 }
 
-// How many clusters of `cluster` blocks at this layout can be resident at
-// once (0: the card refuses the cluster).  Returns a cudaError_t.
+// How many clusters of `cluster` blocks of the dp instantiation at this
+// layout can be resident at once (0: the card refuses the cluster).  Returns
+// a cudaError_t.
 int fused_pcg_chunk_max_clusters(int dp, int np, int mw, int nc, int cluster,
                                  int resident, int* count) {
   *count = 0;
-  if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
+  const KernelFn kernel = kernel_for(dp);
+  if (kernel == nullptr || cluster < 1 || cluster > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
   const size_t bytes =
       smem_layout(dp, np, cols_per_block(mw, cluster), nc, resident).total;
-  cudaError_t err = set_attributes(cluster, bytes);
+  cudaError_t err = set_attributes(kernel, cluster, bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = launch_config(cluster, bytes, 0, attr);
-  return (int)cudaOccupancyMaxActiveClusters(count, fused_pcg_chunk_kernel<3>, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
 }
 
-// Launch one chunk on `stream` as one cluster of `cluster` blocks; with
+// Launch one chunk of the dp instantiation (3 or 6) on `stream` as one
+// cluster of `cluster` blocks; with
 // `timing`, block 0's clock64 cycles per phase kind land there.  Returns a
 // cudaError_t (0 = launched).
 int fused_pcg_chunk_launch(
@@ -674,7 +701,8 @@ int fused_pcg_chunk_launch(
     const float* cinv, const float* rmat, float* x_out, float* r_out,
     float* p_out, float* rt_out, int* it_out, float* rz_out, int* stop_out,
     float* rr_out, long long* timing, void* stream) {
-  if (dp != 3 || np < 1 || mw < 1 || nlevels < 0 || chunk_iters < 0 ||
+  const KernelFn kernel = kernel_for(dp);
+  if (kernel == nullptr || np < 1 || mw < 1 || nlevels < 0 || chunk_iters < 0 ||
       cluster < 1 || cluster > kMaxCluster ||
       (cinv == nullptr) != (rmat == nullptr) || (cinv != nullptr && nc < 1))
     return (int)cudaErrorInvalidValue;
@@ -687,11 +715,11 @@ int fused_pcg_chunk_launch(
            rmat,   x_out,  r_out,   p_out,  rt_out,      it_out, rz_out,
            stop_out, rr_out, timing};
   const size_t bytes = smem_layout(dp, np, cp, nc, P.resident).total;
-  cudaError_t err = set_attributes(cluster, bytes);
+  cudaError_t err = set_attributes(kernel, cluster, bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = launch_config(cluster, bytes, (cudaStream_t)stream, attr);
-  err = cudaLaunchKernelEx(&cfg, fused_pcg_chunk_kernel<3>, P);
+  err = cudaLaunchKernelEx(&cfg, kernel, P);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

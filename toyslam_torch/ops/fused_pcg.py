@@ -23,7 +23,8 @@ per chunk to the host.
   from device memory once per matvec by a cooperative grid of one block
   per SM (:func:`band_slab_plan`), plus a few full-height wide columns.
 
-:func:`fused_mode` picks one.  The preconditioner is PCR on the chain
+Both kernels are instantiated for SE(2) (dp=3, landmarks dl=2) and SE(3)
+BA (dp=6, dl=3), ``KERNEL_DPS``.  :func:`fused_mode` picks one.  The preconditioner is PCR on the chain
 (or block-Jacobi), optionally with the additive Galerkin coarse level
 ``rmat cinv rmat^T``.  The CPU path runs each kernel's plain PyTorch
 version (:func:`fused_pcg_chunk_ref`, :func:`band_fused_pcg_chunk_ref`);
@@ -361,6 +362,9 @@ def fused_precond_from_graph(cfg, graph, lam: torch.Tensor) -> FusedPrecond:
                                cfg.pcg_coarse_group)
 
 
+# pose block sizes both kernels are instantiated for (their C entry points
+# dispatch on dp): SE(2) and SE(3)
+KERNEL_DPS = (3, 6)
 B1_THREADS = 576      # kThreads in csrc/fused_pcg_chunk.cu
 B1_CLUSTER = 16       # blocks per launch (a non-portable cluster size)
 
@@ -525,17 +529,22 @@ def fused_mode(cfg, graph) -> str:
             "runs only in the plain PCG loop, not ported yet (ROADMAP.md "
             "A.8)"
         )
-    if cfg.solver != "schur":
+    if cfg.solver not in ("schur", "schur3d"):
         raise NotImplementedError(
-            f"solver={cfg.solver!r}: only 'schur' is ported (ROADMAP.md §A)"
+            f"solver={cfg.solver!r}: the fused solve serves 'schur' and "
+            "'schur3d' (ROADMAP.md §A)"
         )
-    dp, dl = 3, 2
+    # block sizes: SE(2) poses and 2D landmarks, or SE(3) poses and 3D points
+    dp, dl = (6, 3) if cfg.solver == "schur3d" else (3, 2)
     n, m = graph.num_poses, graph.num_landmarks
     c = graph.plan.fused.closure_e.shape[0]
-    if c and cfg.exact_odom_jacobians:
+    if c and (cfg.exact_odom_jacobians or dp != 3):
+        # the closure columns chol(W) need the A=-I/B=I odometry blocks
+        # (off-diagonal -W, PSD); SE(3) odometry blocks are general
         raise NotImplementedError(
-            "loop closures with exact odometry Jacobians take the plain "
-            "PCG loop, not ported yet (ROADMAP.md §A)"
+            "loop closures with exact odometry Jacobians, or in an SE(3) "
+            "graph, take the plain PCG loop, not ported yet (ROADMAP.md "
+            "A.5)"
         )
     if coarse_kind == "coarse" and n % cfg.pcg_coarse_group:
         raise NotImplementedError(
@@ -555,9 +564,9 @@ def fused_mode(cfg, graph) -> str:
             f"graph with Np={n}, Mw={mw} exceeds the resident kernel's "
             f"budget (shared memory {smem} > {SMEM_BUDGET_BYTES} B or V "
             f"slabs {slab} > {SLAB_BUDGET_BYTES} B) and carries no band "
-            "layout (plan.band, built by attach_plan from 2048 poses): the "
-            "reference takes its plain PCG loop there, not ported yet "
-            "(ROADMAP.md A.5)"
+            f"layout for dp={dp}, dl={dl} (plan.band, built by attach_plan "
+            "from 2048 SE(2) or 192 SE(3) poses): the reference takes its "
+            "plain PCG loop there, not ported yet (ROADMAP.md A.5)"
         )
     nlevels = max(1, (n - 1).bit_length()) if local_kind == "tridiag" else 0
     b_mw = band.n_wide * dl + dp * c
@@ -749,10 +758,10 @@ def _launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters,
     nl = pre.alphas.shape[0]
     has_coarse = pre.cinv is not None
     nc = pre.cinv.shape[-1] if has_coarse else 0
-    if dp != 3:
+    if dp not in KERNEL_DPS:
         raise NotImplementedError(
-            f"fused_pcg_chunk kernel: dp={dp}; only dp=3 (SE(2)) is built "
-            "(dp=6 comes with the SE(3) port, ROADMAP.md A.16)"
+            f"fused_pcg_chunk kernel: dp={dp}; it is built for dp in "
+            f"{KERNEL_DPS} (SE(2), SE(3))"
         )
     vec = (dp, n)
     planes = (dp, dp, n)
@@ -952,7 +961,7 @@ def _band_library() -> ctypes.CDLL:
     lib.band_fused_pcg_chunk_device.restype = ci
     lib.band_fused_pcg_chunk_smem_bytes.argtypes = [ci, ci, ci]
     lib.band_fused_pcg_chunk_smem_bytes.restype = cll
-    lib.band_fused_pcg_chunk_grid.argtypes = [ci, cll, pi]
+    lib.band_fused_pcg_chunk_grid.argtypes = [ci, ci, cll, pi]
     lib.band_fused_pcg_chunk_grid.restype = ci
     lib.band_fused_pcg_chunk_workspace_floats.argtypes = [pi, ci]
     lib.band_fused_pcg_chunk_workspace_floats.restype = cll
@@ -970,7 +979,7 @@ def band_schedule(device_index: int, n_chunks: int, k_win: int, dp: int,
                   mw: int) -> tuple[int, BandSlabPlan]:
     """The band kernel's grid (one block per SM) and slab schedule on the
     device, for a layout; queried from the card once per (device, layout)
-    and cached."""
+    and cached (the occupancy query is made for the dp instantiation)."""
     lib = _band_library()
     sms, optin = ctypes.c_int(0), ctypes.c_int(0)
     err = lib.band_fused_pcg_chunk_device(device_index, ctypes.byref(sms),
@@ -985,7 +994,7 @@ def band_schedule(device_index: int, n_chunks: int, k_win: int, dp: int,
         raise RuntimeError("band_fused_pcg_chunk: band_smem_bytes does not "
                            "mirror the kernel's shared-memory layout")
     grid = ctypes.c_int(0)
-    err = lib.band_fused_pcg_chunk_grid(device_index, plan.smem_bytes,
+    err = lib.band_fused_pcg_chunk_grid(dp, device_index, plan.smem_bytes,
                                         ctypes.byref(grid))
     if err != 0:
         raise RuntimeError(
@@ -1042,10 +1051,10 @@ def _band_launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters,
     has_coarse = pre.cinv is not None
     nc = pre.cinv.shape[-1] if has_coarse else 0
     cap = op.cover.shape[-1]
-    if dp != 3:
+    if dp not in KERNEL_DPS:
         raise NotImplementedError(
-            f"band_fused_pcg_chunk kernel: dp={dp}; only dp=3 (SE(2)) is "
-            "built (dp=6 comes with the SE(3) port, ROADMAP.md A.16)"
+            f"band_fused_pcg_chunk kernel: dp={dp}; it is built for dp in "
+            f"{KERNEL_DPS} (SE(2), SE(3))"
         )
     if b_dl % 128 or w_row < 1:
         raise ValueError(
@@ -1243,7 +1252,7 @@ def fused_schur_solve(
     pose system, back-substitute the landmarks.  ``mode`` (from
     :func:`fused_mode`) picks the resident or the streamed band operator;
     a prebuilt ``pre`` skips the preconditioner build (the stateful
-    refresh path).  Returns ``(dx_poses [N,3], dx_landmarks [M,2],
+    refresh path).  Returns ``(dx_poses [N, dp], dx_landmarks [M, dl],
     stats)``."""
     if mode not in ("resident", "band"):
         raise ValueError(f"fused mode {mode!r}: 'resident' or 'band'")

@@ -1,7 +1,8 @@
 """Block-sparse normal equations with Schur-complement landmark elimination.
 
-The landmark-landmark block ``Hll`` is block-diagonal (2x2 per landmark), so
-landmarks are eliminated locally and the reduced pose system
+The landmark-landmark block ``Hll`` is block-diagonal (2x2 per landmark in
+SE(2), 3x3 in SE(3) BA), so landmarks are eliminated locally and the
+reduced pose system
 
     S = Hpp - Hpl Hll^-1 Hlp,     S dx_p = -b_p + Hpl Hll^-1 b_l
 
@@ -45,14 +46,16 @@ def _plan(graph: FactorGraph2D) -> gp.GatherPlan:
 
 
 class BlockSystem(NamedTuple):
-    """Undamped block-sparse normal equations (gauge priors included)."""
+    """Undamped block-sparse normal equations (gauge priors included), with
+    pose blocks of dp (3 in SE(2), 6 in SE(3)) and landmark blocks of dl
+    (2 or 3)."""
 
-    hpp_diag: torch.Tensor   # f32[N,3,3] pose diagonal blocks
-    hpp_off: torch.Tensor    # f32[E1,3,3] odometry off-diagonal block at (i, j)
-    hll: torch.Tensor        # f32[M,2,2] landmark diagonal blocks
-    hpl: torch.Tensor        # f32[E2,3,2] pose-landmark coupling per edge
-    bp: torch.Tensor         # f32[N,3] pose gradient
-    bl: torch.Tensor         # f32[M,2] landmark gradient
+    hpp_diag: torch.Tensor   # f32[N,dp,dp] pose diagonal blocks
+    hpp_off: torch.Tensor    # f32[E1,dp,dp] odometry off-diagonal block at (i, j)
+    hll: torch.Tensor        # f32[M,dl,dl] landmark diagonal blocks
+    hpl: torch.Tensor        # f32[E2,dp,dl] pose-landmark coupling per edge
+    bp: torch.Tensor         # f32[N,dp] pose gradient
+    bl: torch.Tensor         # f32[M,dl] landmark gradient
     err: torch.Tensor        # f32[] robust chi^2
 
 
@@ -171,7 +174,9 @@ def inv3x3(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def inv_blocks(blocks: torch.Tensor) -> torch.Tensor:
-    """Batched small-block inverse: closed forms for 2x2/3x3."""
+    """Batched small-block inverse: closed forms for 2x2/3x3, larger blocks
+    (the 6x6 SE(3) pose blocks) through ``torch.linalg.inv``, where the
+    reference has ``jnp.linalg.inv``."""
     k = blocks.shape[-1]
     if k == 2:
         return inv2x2(blocks)
@@ -183,14 +188,16 @@ def inv_blocks(blocks: torch.Tensor) -> torch.Tensor:
 def hlp_matvec(
     sys: BlockSystem, lm_pose: torch.Tensor, x: torch.Tensor, plan
 ) -> torch.Tensor:
-    """``Hlp @ x = Hpl^T @ x`` for ``x [N, 3]`` -> [M, 2]."""
+    """``Hlp @ x = Hpl^T @ x`` for ``x [N, dp]`` -> [M, dl] (block sizes
+    read off ``hpl``)."""
     return gp.table_sum(bm.mtv(sys.hpl, x[lm_pose]), plan.lm_by_lm)
 
 
 def hpl_matvec(
     sys: BlockSystem, lm_lm: torch.Tensor, y: torch.Tensor, plan
 ) -> torch.Tensor:
-    """``Hpl @ y`` for ``y [M, 2]`` -> [N, 3]."""
+    """``Hpl @ y`` for ``y [M, dl]`` -> [N, dp] (block sizes read off
+    ``hpl``)."""
     return gp.table_sum(bm.mv(sys.hpl, y[lm_lm]), plan.lm_by_pose)
 
 
@@ -247,7 +254,8 @@ def _pl_t(a: torch.Tensor) -> torch.Tensor:
 
 
 def _pl_inv(p: torch.Tensor) -> torch.Tensor:
-    """Closed-form inverse of 2x2/3x3 blocks in plane layout [d,d,N]."""
+    """Inverse of blocks in plane layout [d,d,N]: closed forms for 2x2/3x3,
+    :func:`inv_blocks` for larger ones."""
     d = p.shape[0]
     if d == 2:
         a, b2 = p[0, 0], p[0, 1]
@@ -310,8 +318,8 @@ def build_tridiag_precond(
 def chain_upper(
     sys: BlockSystem, odom_i: torch.Tensor, odom_j: torch.Tensor, n: int
 ) -> torch.Tensor:
-    """Superdiagonal of the pose-chain part of S: the odometry off-diagonal
-    blocks of consecutive poses (loop closures j != i+1 are excluded).  The
+    """Superdiagonal ``[n, dp, dp]`` of the pose-chain part of S: the
+    odometry off-diagonal blocks of consecutive poses (loop closures j != i+1 are excluded).  The
     reference's ``segment_sum``; each chain vertex has one such edge, and
     the padded edges add exact zeros, so the sum has one order."""
     m = (odom_j == odom_i + 1).to(sys.hpp_off.dtype)

@@ -1,4 +1,5 @@
-"""Damped Gauss-Newton over a :class:`FactorGraph2D`.
+"""Damped Gauss-Newton over a :class:`FactorGraph2D` or, with
+``solver="schur3d"``, a :class:`FactorGraph3D`.
 
 Control flow is that of ``toyslam_tpu.optimizer.gauss_newton._run``, as a
 Python loop in place of ``lax.while_loop``:
@@ -27,7 +28,7 @@ import torch
 
 from toyslam_torch.config import OptimizerConfig
 from toyslam_torch.models.graph import FactorGraph2D
-from toyslam_torch.ops import se2
+from toyslam_torch.ops import se2, se3
 
 
 class OptimizeResult(NamedTuple):
@@ -45,7 +46,9 @@ class OptimizeResult(NamedTuple):
 class GaussNewton:
     """Configured optimizer.  ``solve`` is a linearize-solve
     ``(graph, lam) -> (dx_poses, dx_landmarks, err, stats)``; by default the
-    Schur/fused-PCG solve for ``config.solver == "schur"``."""
+    Schur/fused-PCG solve of ``config.solver``: "schur" (SE(2) graphs,
+    ``se2.retract``) or "schur3d" (SE(3) BA graphs, ``se3.retract``).
+    Landmarks update additively in both."""
 
     config: OptimizerConfig = OptimizerConfig()
     solve: Callable | None = None
@@ -55,28 +58,39 @@ class GaussNewton:
 
     def __post_init__(self):
         object.__setattr__(self, "_builtin_solver", self.solve is None)
+        cfg = self.config
+        se3d = cfg.solver == "schur3d"
         if self.solve is None:
-            if self.config.solver != "schur":
+            if cfg.solver not in ("schur", "schur3d"):
                 raise NotImplementedError(
-                    f"solver={self.config.solver!r}: only 'schur' is ported "
-                    "(dense: ROADMAP.md A.4/A.15; schur_grid: A.9; "
-                    "schur3d: A.10)"
+                    f"solver={cfg.solver!r}: 'schur' and 'schur3d' are "
+                    "ported (dense: ROADMAP.md A.4/A.15; schur_grid: A.9)"
                 )
-            from toyslam_torch.ops.schur import schur_linearize_solve
+            if se3d:
+                from toyslam_torch.ops.schur3d import schur3d_linearize_solve
 
-            object.__setattr__(
-                self, "solve", schur_linearize_solve(self.config)
-            )
+                solve = schur3d_linearize_solve(cfg)
+            else:
+                from toyslam_torch.ops.schur import schur_linearize_solve
+
+                solve = schur_linearize_solve(cfg)
+            object.__setattr__(self, "solve", solve)
         if self.retract is None:
-            object.__setattr__(self, "retract", se2.retract)
-        if self.config.reject_worse_steps and self.error_fn is None:
-            from toyslam_torch.ops.edge_blocks import total_error
+            object.__setattr__(self, "retract",
+                               se3.retract if se3d else se2.retract)
+        if cfg.reject_worse_steps and self.error_fn is None:
+            if se3d:
+                from toyslam_torch.ops.schur3d import total_error_3d
 
-            object.__setattr__(
-                self, "error_fn",
-                functools.partial(total_error,
-                                  huber_delta=self.config.huber_delta),
-            )
+                err = functools.partial(
+                    total_error_3d, huber_delta=cfg.huber_delta,
+                    exact_odom_jacobians=cfg.exact_odom_jacobians)
+            else:
+                from toyslam_torch.ops.edge_blocks import total_error
+
+                err = functools.partial(total_error,
+                                        huber_delta=cfg.huber_delta)
+            object.__setattr__(self, "error_fn", err)
 
     def _prepare(self, graph: FactorGraph2D) -> FactorGraph2D:
         """Attach the gather tables and, on large graphs, the band layout
