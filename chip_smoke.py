@@ -58,11 +58,30 @@ Run from the root of a checkout.  Phases, each of which must pass:
 12. the BA scale path: ``make_ba_problem(512, 4096, 24, seed=0)`` with the
    exp_ba512 fused row and its matched-budget row through B2 (B1 launched
    no time), checked against ``BA_REF``;
-13. their timing, as in phase 11.
+13. their timing, as in phase 11;
+14. the plain PCG loop (``pcg_backend="xla"``) on the main path (PCG
+   iterations 35, 35, 34, 33, 33, 32, 32, 32, 31, 31 and the phase-3
+   values), the 10k scale path (the phase-7 values: they are the JAX
+   package's plain-loop ones) and the ba128 BA row (``BA_REF``), each with
+   no kernel launch and its GN-iter/s beside the kernel path's;
+15. ``python -m toyslam_torch run --solver dense`` in process (ATE 0.7552,
+   chi^2 228733.53 -> 27524.9, no launch) and the dense GN-iter/s;
+16. the bench suite's two 10k ``schur_grid`` rows (``GRID_CASES``), each
+   under pcg_backend "auto" (the gate's decision printed), "fused" (B2
+   launched, B1 not) and "xla" (no launch), held to the JAX package's
+   plain-loop values (``GRID_REF``) and timed;
+17. B2 on the grid path: timed on the 10k row's own operands (coarse level
+   nc=320) against its plain version and its bound, with its per-phase
+   split, and held against its plain version on a seeded system of that
+   layout and shapes (fresh, carried, rerun bits);
+18. the data of the band-vs-grid cost model (line ``grid_gate_fit``): the
+   band operator's build, B2's cost per trip and the plain grid loop's per
+   iteration at three layouts, beside the model's prediction.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 its path, largest difference from the plain version, ms, plain_ms,
-bound_ms, bound_by, library_ms); the last line is ``{"ok": true,
+bound_ms, bound_by, library_ms; the same for B1 and B2 at dp=6 and for B2
+on the grid path); the last line is ``{"ok": true,
 "device": {...}}``, printed only when every phase passed.
 Without a CUDA device the script exits non-zero and prints no result.
 """
@@ -160,6 +179,44 @@ BA_REF = {
     "ba512_matched": dict(chi2=(20788476.0, 13470.5),
                           ate_initial=3.9674267768859863,
                           ate_final=0.4009546637535095, final_rtol=2e-2),
+}
+
+
+# The plain PCG loop on the main path: the JAX package's iteration counts
+# (pcg_backend="xla", the same as its fused path's)
+MAIN_PCG_ITERS = [35, 35, 34, 33, 33, 32, 32, 32, 31, 31]
+DENSE_CHI2_FIRST, DENSE_CHI2_FINAL = 228733.53, 27524.9
+
+# The bench suite's two 10k grid rows (scripts/bench_suite.py:274-325):
+# make_large_problem's arguments and the OptimizerConfig fields over
+# GRID_BENCH.  Each runs under pcg_backend "auto", "fused" and "xla".
+GRID_BENCH = dict(
+    iterations=15, lr=1.0, solver="schur_grid", exact_odom_jacobians=True,
+    pcg_tol=1e-2, pcg_max_iters=15, pcg_restart_every=15,
+    pcg_precond="tridiag+coarse", pcg_coarse_group=32, pcg_precond_refresh=5,
+    pcg_backend="auto", pcg_fused_chunk=15,
+)
+GRID_CASES = {
+    "large-sparse-10k": (dict(num_poses=10_000, num_landmarks=10_000,
+                              obs_per_pose=6, seed=0), {}),
+    "large-sparse-10k-revisit": (dict(num_poses=10_000, num_landmarks=5_000,
+                                      obs_per_pose=6, seed=0, laps=2),
+                                 dict(iterations=20)),
+}
+# Their references: the JAX package's f32 schur_grid run with
+# pcg_backend="xla" on the CPU (``python tests/test_torch_grid_schur.py``):
+# chi^2 at the first and last GN iteration, the final and the
+# dead-reckoning ATE; 15 PCG iterations (the cap) in every GN iteration.
+# Held: chi^2 first at rtol 1e-4, final chi^2 within 1 %, the ATE within
+# 5 % on the revisit row (the row without revisits has no observable
+# ATE: it drifts with the map).
+GRID_REF = {
+    "large-sparse-10k": dict(chi2=(10942544.0, 6652.3388671875),
+                             ate=10.063098907470703,
+                             ate_dr=53.99301528930664),
+    "large-sparse-10k-revisit": dict(chi2=(27641242.0, 6861.9853515625),
+                                     ate=1.4336570501327515,
+                                     ate_dr=40.60987854003906),
 }
 
 
@@ -412,24 +469,27 @@ def chunk_bound(op, pre, rhs, chunk, restart=True):
 # --- phase 3: the main path ---------------------------------------------
 
 
-def main_config(steps=150):
+def main_config(steps=150, **change):
     from toyslam_torch.config import OptimizerConfig, SimConfig, SlamConfig
 
     return SlamConfig(
         sim=SimConfig(robot_steps=steps, seed=0),
-        optimizer=OptimizerConfig(
-            iterations=10, lr=0.2, solver="schur", pcg_precond="tridiag",
-        ),
+        optimizer=OptimizerConfig(**dict(
+            dict(iterations=10, lr=0.2, solver="schur",
+                 pcg_precond="tridiag"), **change)),
     )
 
 
-def run_path(steps, device):
+def run_path(steps, device, **change):
+    """The main path's simulation, graph and optimize() on the card with
+    the launch counts set to 0 just before and read just after; ``change``
+    overrides OptimizerConfig fields."""
     import numpy as np
 
     from toyslam_torch.optimizer import GaussNewton
     from toyslam_torch.sim import frontend
 
-    cfg = main_config(steps)
+    cfg = main_config(steps, **change)
     t0 = time.perf_counter()
     sim = frontend.simulate(cfg.sim)
     graph, _ = frontend.build_graph(sim, cfg)
@@ -960,7 +1020,7 @@ def phase_scale_path(device):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"scale path checks failed: {failed}")
-    return m, gn, gdev
+    return m, gn, gdev, poses_gt
 
 
 def phase_band_kernels(gn, gdev):
@@ -1066,21 +1126,8 @@ def band_phase_split(op, pre, rhs, chunk, chunk_ms, probe_iters=2000):
 
 
 def phase_scale_timing(gn, gdev):
-    import torch
-
-    out = {}
-    times = []
     # 2 rounds (3 before the BA phases lengthened the smoke)
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = gn.optimize(gdev)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    out["optimize_s_rounds"] = times
-    out["optimize_s_median"] = statistics.median(times)
-    out["gn_iter_per_s"] = r.iterations_run / statistics.median(times)
-    out["iterations_run"] = r.iterations_run
+    out = gn_rate(gn, gdev, 2)
     state, layers, full_precond = scale_layer_system(gn, gdev)
     for name, fn in layers[:2]:
         fn()
@@ -1162,10 +1209,11 @@ def phase_ba_kernels(device):
             "bound": bounds}
 
 
-def ba_optimize(case, device):
+def ba_optimize(case, device, **change):
     """One BA path: the seeded graph, ``GaussNewton(...).optimize`` on the
     card with the launch counts set to 0 just before and read just after,
-    and its metrics."""
+    and its metrics; ``change`` overrides OptimizerConfig fields (mode None:
+    the plain PCG loop, no launch)."""
     import numpy as np
 
     from toyslam_torch.config import OptimizerConfig
@@ -1176,7 +1224,7 @@ def ba_optimize(case, device):
     poses, landmarks, kw = BA_CASES[case]
     t0 = time.perf_counter()
     graph, gt, _ = synthetic3d.make_ba_problem(poses, landmarks, 24, seed=0)
-    gn = GaussNewton(OptimizerConfig(**kw))
+    gn = GaussNewton(OptimizerConfig(**dict(kw, **change)))
     graph = gn._prepare(graph)          # gather tables and band layout
     host_s = time.perf_counter() - t0
     gdev = graph.to(device)
@@ -1207,7 +1255,7 @@ def ba_optimize(case, device):
     b1, b2 = (launches["fused_pcg_chunk"], launches["band_fused_pcg_chunk"])
     checks = {
         "kernel": (b1 > 0 and b2 == 0) if mode == "resident"
-        else (b2 > 0 and b1 == 0),
+        else (b2 > 0 and b1 == 0) if mode == "band" else b1 == b2 == 0,
         "finite": m["finite"],
         "chi2_first": math.isclose(errors[0], ref["chi2"][0], rel_tol=1e-4),
         # LM with step rejection: chi^2 never rises
@@ -1283,9 +1331,22 @@ def path_timing(gn, gdev, mode, rounds=3):
     """GN-iter/s as the median of ``rounds`` optimize() calls fenced with
     torch.cuda.synchronize(), the ms of each layer of the GN-iteration-0
     solve (CUDA events), and the device time from torch.profiler."""
+    out = gn_rate(gn, gdev, rounds)
+    state, layers = layer_system(gn, gdev, mode)
+    out["layer_ms"] = {name: cuda_ms(fn, 3) for name, fn in layers}
+    out["pcg_iters_iter0"] = int(state["res"].iterations)
+    out["device"] = device_time(gn, gdev, out["optimize_s_median"], reps=1)
+    return out
+
+
+# --- phases 14-18: the plain PCG loop, the dense solver, schur_grid -------
+
+
+def gn_rate(gn, gdev, rounds):
+    """GN-iter/s: GN iterations over the median of ``rounds`` optimize()
+    calls fenced with torch.cuda.synchronize()."""
     import torch
 
-    out = {}
     times = []
     for _ in range(rounds):
         torch.cuda.synchronize()
@@ -1293,14 +1354,352 @@ def path_timing(gn, gdev, mode, rounds=3):
         r = gn.optimize(gdev)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    out["optimize_s_rounds"] = times
-    out["optimize_s_median"] = statistics.median(times)
-    out["gn_iter_per_s"] = r.iterations_run / statistics.median(times)
-    out["iterations_run"] = r.iterations_run
-    state, layers = layer_system(gn, gdev, mode)
-    out["layer_ms"] = {name: cuda_ms(fn, 3) for name, fn in layers}
-    out["pcg_iters_iter0"] = int(state["res"].iterations)
-    out["device"] = device_time(gn, gdev, out["optimize_s_median"], reps=1)
+    return {"optimize_s_rounds": times,
+            "optimize_s_median": statistics.median(times),
+            "gn_iter_per_s": r.iterations_run / statistics.median(times),
+            "iterations_run": r.iterations_run}
+
+
+def failed_checks(name, checks):
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{name} checks failed: {failed}")
+
+
+def phase_plain_loop(device, state):
+    """The plain PCG loop (pcg_backend="xla") on the main path, the 10k
+    scale path and the ba128 BA row, each held to its reference values with
+    no kernel launch, and its GN-iter/s beside the kernel path's of the same
+    call."""
+    import dataclasses
+
+    from toyslam_torch.optimizer import GaussNewton
+    from toyslam_torch.sim import frontend
+
+    out = {}
+    m, gn, gdev = run_path(150, device, pcg_backend="xla")
+    checks = {
+        "no launch": sum(m["kernel_launches"].values()) == 0,
+        "finite": m["finite"],
+        "pcg iterations": m["pcg_iters"] == MAIN_PCG_ITERS,
+        "ate": abs(m["ate_rmse"] - ATE_REF) <= ATE_TOL,
+        "chi2_first": math.isclose(m["chi2"][0], CHI2_FIRST, rel_tol=1e-4),
+        "chi2_final": math.isclose(m["chi2"][-1], CHI2_FINAL, rel_tol=1e-3),
+    }
+    m["rate"] = gn_rate(gn, gdev, 3)
+    m["kernel_path_gn_iter_per_s"] = state["timing"]["gn_iter_per_s"]
+    log("plain_main_path " + json.dumps(m))
+    failed_checks("plain-loop main path", checks)
+    out["main"] = m
+
+    gn = GaussNewton(dataclasses.replace(scale_config(), pcg_backend="xla"))
+    gdev = state["sgdev"]
+    reset_counts()
+    res = gn.optimize(gdev)
+    est = res.graph.poses.cpu().numpy()
+    launches = read_counts()
+    it = res.iterations_run
+    errors = res.errors.cpu().numpy()[:it]
+    poses_gt = state["sgt"]
+    n = poses_gt.shape[0]
+    m = {"chi2": errors.tolist(), "pcg_iters": res.pcg_iters[:it].tolist(),
+         "ate_rmse": frontend.ate_rmse(est[:n], poses_gt),
+         "kernel_launches": launches}
+    checks = {
+        "no launch": sum(launches.values()) == 0,
+        "iterations": it == SCALE_GN_ITERS,
+        "pcg iterations": m["pcg_iters"] == [SCALE_PCG_ITERS] * SCALE_GN_ITERS,
+        "chi2_first": math.isclose(errors[0], SCALE_CHI2_FIRST, rel_tol=1e-4),
+        "chi2_final": math.isclose(errors[-1], SCALE_CHI2_FINAL,
+                                   rel_tol=SCALE_REL),
+        "ate": math.isclose(m["ate_rmse"], SCALE_ATE, rel_tol=SCALE_REL),
+    }
+    m["rate"] = gn_rate(gn, gdev, 2)
+    m["kernel_path_gn_iter_per_s"] = state["scale_timing"]["gn_iter_per_s"]
+    log("plain_scale_path " + json.dumps(m))
+    failed_checks("plain-loop scale path", checks)
+    out["scale"] = m
+
+    m, gn, gdev = ba_optimize("ba128", device, pcg_backend="xla")
+    assert m["mode"] is None
+    m["rate"] = gn_rate(gn, gdev, 1)      # ~10 s an optimize() here
+    m["kernel_path_gn_iter_per_s"] = state["ba_timing"]["gn_iter_per_s"]
+    log("plain_ba128 " + json.dumps(m))
+    out["ba128"] = m
+    return out
+
+
+def phase_dense(device, state):
+    """``python -m toyslam_torch run --solver dense`` in process, held to
+    the JAX package's dense values, and the dense GN-iter/s."""
+    import contextlib
+    import io
+
+    from toyslam_torch import app
+    from toyslam_torch.optimizer import GaussNewton
+    from toyslam_torch.sim import frontend
+
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = app.main(["run", "--solver", "dense"])
+    launches = read_counts()
+    cli = json.loads(buf.getvalue().strip().splitlines()[-1])
+    checks = {
+        "exit 0": code == 0,
+        "device": cli["device"] == "cuda",
+        "no launch": cli["kernel_launches"] == 0
+        and sum(launches.values()) == 0,
+        "direct solves": cli["pcg_iters"] == [0] * cli["iterations_run"],
+        "ate": abs(cli["ate_rmse"] - ATE_REF) <= ATE_TOL,
+        "chi2_first": math.isclose(cli["chi2_first"], DENSE_CHI2_FIRST,
+                                   rel_tol=1e-4),
+        "chi2_final": math.isclose(cli["chi2_final"], DENSE_CHI2_FINAL,
+                                   rel_tol=1e-3),
+    }
+    cfg = main_config(solver="dense")
+    graph, _ = frontend.build_graph(frontend.simulate(cfg.sim), cfg)
+    cli["rate"] = gn_rate(GaussNewton(cfg.optimizer), graph.to(device), 5)
+    cli["kernel_path_gn_iter_per_s"] = state["timing"]["gn_iter_per_s"]
+    log("dense_cli " + json.dumps(cli))
+    failed_checks("dense", checks)
+    return cli
+
+
+def grid_config(case, backend):
+    from toyslam_torch.config import OptimizerConfig
+
+    return OptimizerConfig(**dict(GRID_BENCH, **GRID_CASES[case][1],
+                                  pcg_backend=backend))
+
+
+def phase_grid_paths(device):
+    """The bench suite's two 10k rows through ``solver="schur_grid"``, each
+    under pcg_backend "auto" (the gate's decision printed), "fused" (B2
+    launched, B1 not) and "xla" (no launch), held to ``GRID_REF``; each
+    timed (GN-iter/s, median of 2 rounds)."""
+    import numpy as np
+
+    from toyslam_torch.ops import grid_schur
+    from toyslam_torch.optimizer import GaussNewton
+    from toyslam_torch.sim import frontend, synthetic
+
+    out, graphs = {}, {}
+    for case, (graph_kw, _) in GRID_CASES.items():
+        ref = GRID_REF[case]
+        t0 = time.perf_counter()
+        graph, poses_gt, _ = synthetic.make_large_problem(**graph_kw)
+        t1 = time.perf_counter()
+        graph = GaussNewton(grid_config(case, "fused"))._prepare(graph)
+        t2 = time.perf_counter()
+        gdev = graph.to(device)
+        band = gdev.plan.band
+        n = poses_gt.shape[0]
+        decision = grid_schur._band_mode(grid_config(case, "auto"),
+                                         gdev.plan, gdev.num_poses)
+        row = {"poses_padded": gdev.num_poses,
+               "landmarks_padded": gdev.num_landmarks,
+               "kl_kp": [gdev.plan.L_pose.shape[0] // gdev.num_landmarks,
+                         gdev.plan.P_pose.shape[0] // gdev.num_poses],
+               "layout": {"chunk_b": band.chunk_b,
+                          "k_windows": band.k_windows, "w_row": band.w_row,
+                          "n_chunks": band.n_chunks, "n_wide": band.n_wide,
+                          "tile_bytes": band.tile_bytes,
+                          "cover_cap": int(band.cover.shape[-1])},
+               "host_graph_build_s": t1 - t0, "host_grid_plan_s": t2 - t1,
+               "auto_takes_band": decision, "runs": {}}
+        failed = []
+        for backend in ("auto", "fused", "xla"):
+            gn = GaussNewton(grid_config(case, backend))
+            reset_counts()
+            res = gn.optimize(gdev)
+            est = res.graph.poses.cpu().numpy()
+            launches = read_counts()
+            it = res.iterations_run
+            errors = res.errors.cpu().numpy()[:it]
+            b2 = launches["band_fused_pcg_chunk"]
+            band_run = backend == "fused" or (backend == "auto" and decision)
+            m = {"chi2": errors.tolist(),
+                 "pcg_iters": res.pcg_iters[:it].tolist(),
+                 "ate_rmse": frontend.ate_rmse(est[:n], poses_gt),
+                 "ate_dead_reckoning": frontend.ate_rmse(
+                     graph.poses[:n].numpy(), poses_gt),
+                 "kernel_launches": launches}
+            checks = {
+                "launches": launches["fused_pcg_chunk"] == 0
+                and ((b2 > 0) if band_run else (b2 == 0)),
+                "finite": bool(np.isfinite(est).all()
+                               and np.isfinite(errors).all()),
+                "iterations": it == gn.config.iterations,
+                "chi2_first": math.isclose(errors[0], ref["chi2"][0],
+                                           rel_tol=1e-4),
+                "chi2_final": math.isclose(errors[-1], ref["chi2"][-1],
+                                           rel_tol=1e-2),
+                "ate_dr": abs(m["ate_dead_reckoning"] - ref["ate_dr"]) <= 1e-4,
+            }
+            if case.endswith("revisit"):
+                checks["ate"] = math.isclose(m["ate_rmse"], ref["ate"],
+                                             rel_tol=5e-2)
+            m["rate"] = gn_rate(gn, gdev, 2)
+            m["checks"] = checks
+            row["runs"][backend] = m
+            failed += [f"{backend}: {k}" for k, ok in checks.items() if not ok]
+        log("grid_path " + json.dumps({case: row}))
+        out[case] = row
+        graphs[case] = gdev
+        if failed:
+            raise AssertionError(f"grid row {case} checks failed: {failed}")
+    return out, graphs
+
+
+def grid_operands(gdev, cfg):
+    """The grid solve's GN-iteration-0 operands: the preconditioner of
+    ``cfg`` (a FusedPrecond in band mode, else ``(local, coarse)``), the
+    band operator, the right-hand side (``[dp, Np]`` and ``[Np, dp]``),
+    the plain loop's matvec and preconditioner apply, and a function that
+    builds the band operator."""
+    import torch
+
+    from toyslam_torch.ops import blockmath as bm
+    from toyslam_torch.ops import fused_pcg as fp
+    from toyslam_torch.ops import grid_schur as gs
+    from toyslam_torch.ops import schur
+
+    gp, n, m = gdev.plan, gdev.num_poses, gdev.num_landmarks
+    lam = torch.tensor(cfg.lambda_init, device=gdev.device)
+    d = gs._damp(gs._assemble(gdev, gp, cfg), lam)
+    hll_inv = schur.inv_blocks(d.hll)
+    matvec, s_diag = gs._matvec_factory(d, hll_inv, gp, n, m)
+    lm_p = gp.P_lm.reshape(n, d.kp)
+    rhs = -d.bp + bm.mv(d.hpl_P, bm.mv(hll_inv, d.bl)[lm_p]).sum(1)
+    pre = gs._build_precond(cfg, d, hll_inv, s_diag(), gdev, gp)
+
+    def build():
+        return fp.build_band_operator_grid(
+            d.hll, d.hpl_P, lm_p, d.hpp_diag,
+            d.tupper * gp.C_mask[:, None, None], gp.band, n)
+
+    return dict(pre=pre, op=build(), rhs2=rhs.T.contiguous(), rhs=rhs,
+                matvec=matvec, build=build, d=d)
+
+
+def phase_grid_kernel(graphs):
+    """B2 on the grid path: timed on the 10k row's own iteration-0
+    operands (coarse level nc=320) against its plain version and its
+    bound, with its per-phase split; held against its plain version
+    (fresh, carried, rerun bits) on a seeded system of the same layout
+    and shapes."""
+    import torch
+
+    gdev = graphs["large-sparse-10k"]
+    cfg = grid_config("large-sparse-10k", "fused")
+    chunk = cfg.pcg_fused_chunk
+    ops = grid_operands(gdev, cfg)
+    op, pre, rhs2 = ops["op"], ops["pre"], ops["rhs2"]
+    shapes = {"tiles": list(op.tiles.shape), "u": list(op.u.shape),
+              "pcr_levels": pre.alphas.shape[0], "nc": pre.cinv.shape[-1],
+              "rmat": list(pre.rmat.shape), "cinv": list(pre.cinv.shape)}
+    times = chunk_times(op, pre, rhs2, chunk, kernel="band_fused_pcg_chunk",
+                        reps=10)
+    bound = chunk_bound(op, pre, rhs2, chunk)
+    split = band_phase_split(op, pre, rhs2, chunk,
+                             statistics.mean(times["kernel"]))
+    log("grid_band_phase_split " + json.dumps(split))
+    band = gdev.plan.band
+    win_off = band.win_off.cpu().numpy()
+    del ops, op, pre
+    torch.cuda.empty_cache()
+    sop, spre, srhs = synthetic_band_system(
+        gdev.num_poses, win_off, band.w_row, band.chunk_b * 2,
+        2 * band.n_wide, shapes["pcr_levels"], cfg.pcg_coarse_group, 2e-2,
+        seed=6, device=gdev.device)
+    assert (list(sop.tiles.shape), spre.cinv.shape[-1]) == \
+        (shapes["tiles"], shapes["nc"])
+    out = compare_chunks("grid10k_L14_coarse320", sop, spre, srhs,
+                         chunk=chunk, kernel="band_fused_pcg_chunk")
+    del sop, spre, srhs
+    torch.cuda.empty_cache()
+    for r in out:
+        log("grid_band_kernel_check " + json.dumps(r))
+    log("grid_band_kernel " + json.dumps({"shapes": shapes,
+                                          "chunk_ms": times,
+                                          "bound": bound}))
+    bad = [r for r in out if not r["ok"]]
+    if bad:
+        raise AssertionError(
+            f"band kernel disagrees with plain version on the grid layout: "
+            f"{bad}")
+    return {"max_abs": max(r["max_abs_err"] for r in out),
+            "chunk_ms": times, "bound": bound, "split": split}
+
+
+def phase_grid_gate_fit(graphs, device):
+    """The data of the band-vs-grid cost model (grid_schur._band_cost_wins)
+    at three layouts (the two 10k rows and a 4096-pose graph): per GN
+    iteration the band operator's build (tile write and slab-major copy),
+    B2's cost per PCG trip and per launch (a 15- and a 5-iteration chunk),
+    and the plain grid loop's cost per PCG iteration (15 and 5 iterations);
+    the model's prediction and decision beside the measured costs."""
+    import dataclasses
+
+    import torch
+
+    from toyslam_torch.ops import fused_pcg as fp
+    from toyslam_torch.ops import grid_schur as gs
+    from toyslam_torch.ops import schur
+    from toyslam_torch.optimizer import GaussNewton
+    from toyslam_torch.sim import synthetic
+
+    small, _, _ = synthetic.make_large_problem(
+        num_poses=4096, num_landmarks=4096, obs_per_pose=6, seed=0)
+    cfg = grid_config("large-sparse-10k", "fused")
+    layouts = dict(graphs)
+    layouts["large-sparse-4k"] = GaussNewton(cfg)._prepare(small).to(device)
+    out = {}
+    for name, gdev in layouts.items():
+        gp, n = gdev.plan, gdev.num_poses
+        band = gp.band
+        fused = grid_operands(gdev, cfg)
+        plain = grid_operands(gdev, dataclasses.replace(cfg,
+                                                        pcg_backend="xla"))
+        op, pre, rhs2 = fused["op"], fused["pre"], fused["rhs2"]
+        mw = 0 if op.u is None else op.u.shape[1]
+        _, plan = fp.band_schedule(device.index or 0, band.n_chunks,
+                                   band.k_windows, 3, band.w_row,
+                                   band.chunk_b * 2, mw)
+        st = fresh_state(rhs2)
+        atol2 = torch.zeros(1, device=device)
+
+        def launch(k):
+            return lambda: fp.band_fused_pcg_chunk(op, pre, rhs2, st, atol2,
+                                                   200, True, k)
+
+        papply = gs._precond_apply(cfg, plain["pre"])
+
+        def loop(k):
+            return lambda: schur.pcg(plain["matvec"], papply, plain["rhs"],
+                                     0.0, k, k)
+
+        b15, b5 = cuda_ms(launch(15), 5), cuda_ms(launch(5), 5)
+        g15, g5 = cuda_ms(loop(15), 3), cuda_ms(loop(5), 3)
+        build = cuda_ms(lambda: fp._slab_major(fused["build"]().tiles,
+                                               plan.cols), 3)
+        rows = gp.L_pose.shape[0] + gp.P_pose.shape[0]
+        model = dict(zip(("band_s", "grid_s"), gs._cost_model(cfg, gp)))
+        out[name] = {
+            "n": n, "rows": rows, "stack_bytes": band.tile_bytes,
+            "windows": band.n_chunks * band.k_windows,
+            "band_build_ms": build, "b2_chunk15_ms": b15, "b2_chunk5_ms": b5,
+            "b2_trip_ms": (b15 - b5) / 10,
+            "grid_pcg15_ms": g15, "grid_pcg5_ms": g5,
+            "grid_iter_ms": (g15 - g5) / 10,
+            "measured_band_ms": build + b15, "measured_grid_ms": g15,
+            "model": model,
+            "model_takes_band": gs._band_cost_wins(cfg, gp, n),
+        }
+        del fused, plain, op, pre
+        torch.cuda.empty_cache()
+    log("grid_gate_fit " + json.dumps(out))
     return out
 
 
@@ -1358,7 +1757,7 @@ def main() -> int:
             timing=phase_timing(state["gn"], state["gdev"]))),
         ("shape", lambda: state.update(shape=phase_shape(device))),
         ("scale_path", lambda: state.update(
-            zip(("scale", "sgn", "sgdev"), phase_scale_path(device)))),
+            zip(("scale", "sgn", "sgdev", "sgt"), phase_scale_path(device)))),
         ("band_kernels", lambda: state.update(
             band=phase_band_kernels(state["sgn"], state["sgdev"]))),
         ("scale_timing", lambda: state.update(
@@ -1374,6 +1773,15 @@ def main() -> int:
         ("ba_scale_timing", lambda: state.update(ba_scale_timing={
             case: path_timing(gn, gdev, "band")
             for case, (_, gn, gdev) in state["ba_scale"].items()})),
+        ("plain_loop", lambda: state.update(
+            plain=phase_plain_loop(device, state))),
+        ("dense", lambda: state.update(dense=phase_dense(device, state))),
+        ("grid_paths", lambda: state.update(
+            zip(("grid", "ggraphs"), phase_grid_paths(device)))),
+        ("grid_kernel", lambda: state.update(
+            grid_kernel=phase_grid_kernel(state["ggraphs"]))),
+        ("grid_gate_fit", lambda: state.update(
+            grid_fit=phase_grid_gate_fit(state["ggraphs"], device))),
     ]
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -1435,6 +1843,22 @@ def main() -> int:
         plain_ms=statistics.mean(bk["ms"][b2_case]["plain"]),
         bound_ms=bk["bound"][b2_case]["bound_ms"],
         bound_by=bk["bound"][b2_case]["bound_by"], library_ms=None)
+    # B2 on the schur_grid path: the launches of the "fused" and "auto" runs
+    # of both 10k rows, timed on the 10k row's operands (nc=320)
+    gk = state["grid_kernel"]
+    b2["grid"] = dict(
+        launches=sum(row["runs"][b]["kernel_launches"]["band_fused_pcg_chunk"]
+                     for row in state["grid"].values()
+                     for b in ("auto", "fused")),
+        launches_by_path={
+            f"{case}/{b}": row["runs"][b]["kernel_launches"][
+                "band_fused_pcg_chunk"]
+            for case, row in state["grid"].items() for b in ("auto", "fused")},
+        max_abs_err=gk["max_abs"],
+        ms=statistics.mean(gk["chunk_ms"]["kernel"]),
+        plain_ms=statistics.mean(gk["chunk_ms"]["plain"]),
+        bound_ms=gk["bound"]["bound_ms"], bound_by=gk["bound"]["bound_by"],
+        library_ms=None)
     log(json.dumps({"kernels": [b1, b2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

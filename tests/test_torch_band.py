@@ -13,8 +13,8 @@ the 2100-pose graph of tests/test_band_fused.py.
   interpret mode, on a tiny synthetic layout with L=0 (the JAX kernel
   keeps the PCR planes in bf16, so with L=0 both sides are f32): x at rel
   1e-5, the same iteration counts;
-* the gate picks "band" past the resident budget and raises without a
-  layout or past the device-memory budget.
+* the gate picks "band" past the resident budget, and the plain loop
+  (None) without a layout or past the device-memory budget.
 
 The kernel itself runs only on the card (tests/test_torch_kernel.py,
 chip_smoke.py).
@@ -201,7 +201,7 @@ def test_band_chunk_wrapper_on_cpu_runs_plain_version_uncounted():
         with pytest.raises((TypeError, ValueError)):
             t_fp._band_launch(o, p, rhs, st, atol2, 50, True, 4)
     # a pose block size the kernel is not built for (it is for 3 and 6)
-    with pytest.raises(NotImplementedError, match="dp=5"):
+    with pytest.raises(ValueError, match="dp=5"):
         t_fp._band_launch(top, tpre, torch.zeros(5, np_), st, atol2, 50,
                           True, 4)
 
@@ -217,8 +217,6 @@ def test_gate_takes_band_past_the_resident_budget(big, monkeypatch):
                            big["jg"], None) == "band"
     no_band = dataclasses.replace(
         tg, plan=dataclasses.replace(tg.plan, band=None))
-    with pytest.raises(NotImplementedError, match="plan.band"):
-        t_fp.fused_mode(cfg, no_band)
+    assert t_fp.fused_mode(cfg, no_band) is None
     monkeypatch.setattr(t_fp, "BAND_BUDGET_BYTES", 2**20)
-    with pytest.raises(NotImplementedError, match="device memory"):
-        t_fp.fused_mode(cfg, tg)
+    assert t_fp.fused_mode(cfg, tg) is None

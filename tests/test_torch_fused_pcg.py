@@ -7,7 +7,7 @@
   Pallas kernel runs in interpret mode here, for every preconditioner the
   kernel takes (x at rel 1e-3, PCG iterations within one chunk), and one
   chunk's control (max-iteration masking, breakdown stop) is the same;
-* the gate takes the main path and raises for what is not ported; the
+* the gate takes the main path and declines what the reference declines; the
   coarse level built by the port solves as the JAX package's does.
 
 The wrapper and the kernel itself are tested in test_torch_kernel.py.
@@ -204,24 +204,24 @@ def test_gate(main_graph):
     jg, _ = main_graph
     assert j_fp.fused_mode(JOpt(solver="schur", pcg_precond="tridiag"), jg,
                            None) == "resident"
-    for change, match in [
-        ({"pcg_backend": "xla"}, "pcg_backend"),
-        ({"pcg_precond": "chunk"}, "chunk"),
-        ({"pcg_precond": "tridiag+coarse", "pcg_coarse_group": 7},
-         "pcg_coarse_group"),
-    ]:
-        with pytest.raises(NotImplementedError, match=match):
-            fp.fused_mode(dataclasses.replace(cfg, **change), tg)
+    # where the reference's gate declines its kernels the port's does too:
+    # the plain PCG loop
+    for change in [{"pcg_backend": "xla"}, {"pcg_unroll": True},
+                   {"pcg_precond": "chunk"},
+                   {"pcg_precond": "tridiag+coarse", "pcg_coarse_group": 7}]:
+        c = dataclasses.replace(cfg, **change)
+        assert fp.fused_mode(c, tg) is None, change
+        assert j_fp.fused_mode(JOpt(**change), jg, None) is None, change
     with pytest.raises(ValueError, match="attach_plan"):
         fp.fused_mode(cfg, dataclasses.replace(tg, plan=None))
 
     class Huge:
         num_poses, num_landmarks, plan = 20_000, 20_000, tg.plan
 
-    # past the resident budget without a band layout: the reference's
-    # plain PCG loop, not ported
-    with pytest.raises(NotImplementedError, match="plan.band"):
-        fp.fused_mode(cfg, Huge())
+    # past the resident budget without a band layout: the plain loop
+    assert fp.fused_mode(cfg, Huge()) is None
+    with pytest.raises(ValueError, match="fused"):
+        fp.gated_mode(dataclasses.replace(cfg, pcg_backend="fused"), Huge())
     solve = schur.schur_linearize_solve(
         dataclasses.replace(cfg, pcg_precond_refresh=0))
     assert solve.stateful and callable(solve.init_state)

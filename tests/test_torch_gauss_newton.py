@@ -93,17 +93,20 @@ def test_step_matches_jax():
 
 
 def test_unported_solvers_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TGN(TOpt(solver="dense"))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        TGN(TOpt(solver="schur_grid"))
+    """Every solver is ported now; what raises is ``pcg_unroll``, the
+    reference's cost-analysis harness (ROADMAP.md "Do not port"), in the
+    plain loop the gate sends it to, stateful or not."""
+    from toyslam_torch.optimizer.gauss_newton import dense_linearize_solve
+
     _, tg, _ = _graphs(40)
-    gn = TGN(TOpt(**dict(MAIN, pcg_backend="xla")))
-    with pytest.raises(NotImplementedError, match="xla"):
+    assert TGN(TOpt(solver="schur_grid")).solve.prepare is not None
+    assert TGN(TOpt()).solve.__qualname__.startswith(
+        dense_linearize_solve.__name__)
+    gn = TGN(TOpt(**dict(MAIN, pcg_unroll=True)))
+    with pytest.raises(NotImplementedError, match="pcg_unroll"):
         gn.optimize(tg)
-    # the stateful solve checks the gate before it builds its first state
-    gn = TGN(TOpt(**dict(MAIN, pcg_backend="xla", pcg_precond_refresh=0)))
-    with pytest.raises(NotImplementedError, match="xla"):
+    gn = TGN(TOpt(**dict(MAIN, pcg_unroll=True, pcg_precond_refresh=0)))
+    with pytest.raises(NotImplementedError, match="pcg_unroll"):
         gn.optimize(tg)
 
 

@@ -130,8 +130,9 @@ def test_landmark_residuals(moved):
 
 def test_exact_odom_jacobians_not_ported(graphs):
     """Exact odometry Jacobians run (held against the reference in
-    test_torch_coarse.py); what stays unported is their use with loop
-    closures, which the reference sends to its plain PCG loop."""
+    test_torch_coarse.py); with loop closures the gate declines the
+    kernels, as the reference's does, and the plain PCG loop runs them
+    (tests/test_torch_pcg.py)."""
     import dataclasses
 
     from toyslam_torch.config import OptimizerConfig
@@ -151,8 +152,7 @@ def test_exact_odom_jacobians_not_ported(graphs):
     closed = t_attach(dataclasses.replace(
         tg, odom=dataclasses.replace(p, i=i, j=j, mask=mask), plan=None))
     cfg = OptimizerConfig(solver="schur", exact_odom_jacobians=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_fp.fused_mode(cfg, closed)
+    assert t_fp.fused_mode(cfg, closed) is None
     assert t_fp.fused_mode(cfg, tg) == "resident"
 
 

@@ -1,11 +1,13 @@
 """Command-line application of the PyTorch port.
 
 ``python -m toyslam_torch run [--steps 150 --iterations 10 --lr 0.2
---seed 0 --device cuda]`` simulates the scripted trajectory, builds the
-factor graph, optimizes it with the Schur/fused-PCG Gauss-Newton on the
+--solver schur --seed 0 --device cuda]`` simulates the scripted
+trajectory, builds the factor graph, optimizes it with Gauss-Newton on the
 given device (the GPU by default; ``--device cpu`` runs the kernels' plain
 PyTorch versions) and prints one JSON metrics line to stdout (the same keys as
 ``toyslam_tpu``'s ``run``, plus the device and the kernel launch count).
+``--solver schur`` (the default) is the Schur/fused-PCG solve, ``--solver
+dense`` the dense assembly with a Cholesky solve.
 
 ``python -m toyslam_torch ba3d [--poses 64 --landmarks 256 --obs 24
 --iterations 25 --huber 1e9 --seed 0 --device cuda]`` does the same for the
@@ -37,7 +39,7 @@ def cmd_run(args) -> int:
     cfg = SlamConfig(
         sim=SimConfig(robot_steps=args.steps, seed=args.seed),
         optimizer=OptimizerConfig(
-            iterations=args.iterations, lr=args.lr, solver="schur",
+            iterations=args.iterations, lr=args.lr, solver=args.solver,
         ),
     )
     t0 = time.perf_counter()
@@ -149,6 +151,7 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--steps", type=int, default=150, help="robot steps")
     r.add_argument("--iterations", type=int, default=10)
     r.add_argument("--lr", type=float, default=0.2)
+    r.add_argument("--solver", choices=("dense", "schur"), default="schur")
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--device", default="cuda",
                    help="torch device to optimize on: cuda (the default, "

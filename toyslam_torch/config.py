@@ -3,8 +3,9 @@
 The two packages share one configuration vocabulary so a run can be
 described once and handed to either.  ``tests/test_torch_config.py`` pins
 the field names, the defaults and the ``__post_init__`` errors against the
-JAX package.  Options this package does not run yet keep their fields and
-raise ``NotImplementedError`` where they are used (see ROADMAP.md §A).
+JAX package.  The one option this package does not run, ``pcg_unroll``
+(the JAX package's cost-analysis harness), raises ``NotImplementedError``
+where the plain PCG loop would use it.
 """
 
 from __future__ import annotations
@@ -79,12 +80,11 @@ class OptimizerConfig:
     """Batch Gauss-Newton with adaptive damping and a Huber robust kernel.
 
     The semantics of every field are those of
-    ``toyslam_tpu.config.OptimizerConfig``.  What this package runs today:
-    ``solver="schur"`` with ``pcg_precond`` "jacobi" or "tridiag", with or
-    without "+coarse", any ``pcg_precond_refresh`` and either
-    ``exact_odom_jacobians``, through the resident or the band fused-PCG
-    kernel.  The other values validate here and raise
-    ``NotImplementedError`` where the solver is built or run.
+    ``toyslam_tpu.config.OptimizerConfig``, and this package runs every
+    single-device solver: "dense", "schur", "schur_grid" and "schur3d".
+    The PCG runs in a fused kernel where the gate admits the graph and in
+    the plain loop elsewhere (``pcg_backend="xla"`` always); only
+    ``pcg_unroll=True`` raises ``NotImplementedError``.
     """
 
     iterations: int = 10
@@ -109,8 +109,8 @@ class OptimizerConfig:
     pcg_chunk: int = 64
     pcg_precond_refresh: int = 1
     edge_backend: str = "xla"
-    # "auto" / "fused" run the fused-PCG kernel; "xla" names the reference's
-    # plain PCG loop, which this package does not have yet.
+    # "auto" / "fused" run the fused-PCG kernels where the gate admits the
+    # graph; "xla" names the plain PCG loop (ops/schur.py::pcg).
     pcg_backend: str = "auto"
     pcg_unroll: bool = False
     # PCG iterations per kernel launch; also the true-residual replacement

@@ -974,10 +974,15 @@ long long band_fused_pcg_chunk_workspace_floats(const int* dims, int ndims) {
 }
 
 // `iters` grid barriers on a cooperative grid of `grid` blocks of the band
-// kernel's size and shared memory (set by band_fused_pcg_chunk_grid first).
+// kernel's size and shared memory (the grid from band_fused_pcg_chunk_grid).
 int band_grid_sync_probe(int grid, long long smem_bytes, int iters, void* stream) {
   void* args[] = {&iters};
-  cudaError_t err = cudaLaunchCooperativeKernel(
+  // set here too: another layout's grid query may have changed it since
+  cudaError_t err = cudaFuncSetAttribute(
+      grid_sync_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchCooperativeKernel(
       (const void*)grid_sync_probe_kernel, dim3(grid), dim3(kThreads), args,
       (size_t)smem_bytes, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;

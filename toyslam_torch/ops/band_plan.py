@@ -18,10 +18,10 @@ the band kernel streams:
 ``(B, K, Wrow)`` is chosen from a fixed candidate table by a modeled
 per-matvec stream time.  The layout is the JAX package's
 (``toyslam_tpu.ops.band_plan``) field for field, including the score's
-constants, which are fits on a TPU v5e (ROADMAP.md A.9 re-fits them).  One
-field is added for the CUDA kernel: ``cover``, the windows covering each
-pose, in (chunk, window) order.  Not here yet (ROADMAP.md A.9):
-``GridBandAux`` and ``build_grid_band``, which wait for ``schur_grid``.
+constants, which are fits on a TPU v5e.  One field is added for the CUDA
+kernel: ``cover``, the windows covering each pose, in (chunk, window)
+order.  :class:`GridBandAux` re-addresses the layout to the pose-major grid
+storage of ``ops/grid_schur.py``.
 """
 
 from __future__ import annotations
@@ -131,6 +131,93 @@ def band_aux_from_arrays(
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class GridBandAux(TensorTree):
+    """The band layout re-addressed to the pose-major grid storage of
+    ``ops/grid_schur.py``: the tile write sources the flattened ``[N*Kp,
+    dp, dl]`` per-slot blocks instead of per-edge ones, so the band
+    operator builds straight from the grid assembly
+    (``fused_pcg.build_band_operator_grid``).  SE(2) only, as the grid
+    solver."""
+
+    src_rows: torch.Tensor     # int64[Eb] grid slot per band edge, base-sorted
+    elem_ids: torch.Tensor     # int64[Eb*dp*dl] edge-major tile element ids
+    wide_slots: torch.Tensor   # int64[Ew_pad] grid slot of each wide edge
+    wide_ids: torch.Tensor     # int64[Ew_pad] destination p*n_wide + widx
+    win_off: torch.Tensor      # int32[n_chunks, K]
+    cover: torch.Tensor        # int32[N, cap], as BandAux.cover
+    chunk_b: int = 64
+    k_windows: int = 2
+    w_row: int = 192
+    n_chunks: int = 0
+    n_wide: int = 0
+    dp: int = 3
+    dl: int = 2
+
+    @property
+    def tile_bytes(self) -> int:
+        return (self.n_chunks * self.k_windows * self.dp * self.w_row
+                * self.chunk_b * self.dl * 4)
+
+
+def build_grid_band(graph, p_pose, p_lm, p_mask,
+                    kp: int) -> GridBandAux | None:
+    """Host side: the band structure search (:func:`build_band_aux`), its
+    tile program re-addressed to pose-major grid slots (slot ``p*kp + q``
+    of pose ``p``), and the kernel's cover table.  ``p_pose``, ``p_lm``,
+    ``p_mask``: the grid plan's pose-major slot arrays (numpy)."""
+    band = build_band_aux(graph)
+    if band is None:
+        return None
+    n = graph.num_poses
+    lp = _host(graph.lm_edges.pose).astype(np.int64)
+    ll = _host(graph.lm_edges.lm).astype(np.int64)
+    # (pose, landmark) -> grid slot; pairs are unique (build_band_aux
+    # refuses duplicates)
+    key_w = int(max(ll.max(), np.max(p_lm)) + 1)
+    slots = np.nonzero(np.asarray(p_mask) > 0)[0]
+    keys = np.asarray(p_pose, np.int64)[slots] * key_w + \
+        np.asarray(p_lm, np.int64)[slots]
+    order = np.argsort(keys, kind="stable")
+    skeys, sslots = keys[order], slots[order]
+
+    def slot_of(edges):
+        k = lp[edges] * key_w + ll[edges]
+        i = np.searchsorted(skeys, k)
+        assert np.array_equal(skeys[np.minimum(i, skeys.size - 1)], k)
+        return sslots[i].astype(np.int64)
+
+    band_mask = _host(band.band_mask)
+    base = _host(band.scatter_base).astype(np.int64)
+    stride_a = band.w_row * band.chunk_b * 2
+    eb = np.nonzero(band_mask > 0)[0]
+    # base-sorted edge order, as the per-edge layout
+    order_e = np.argsort(base[eb], kind="stable")
+    src_rows = slot_of(eb[order_e])
+    offs = np.asarray([a * stride_a + b for a in range(3) for b in range(2)],
+                      np.int64)
+    elem_ids = (base[eb][order_e][:, None] + offs[None, :]).reshape(-1)
+
+    we = np.nonzero(_host(band.wide_mask) > 0)[0]
+    ew_pad = max(64, 1 << int(np.ceil(np.log2(max(len(we), 1)))))
+    nw = max(band.n_wide, 1)
+    wide_slots = np.full((ew_pad,), n * kp, np.int64)
+    wide_ids = np.full((ew_pad,), n * nw, np.int64)
+    wide_slots[: len(we)] = slot_of(we)
+    wide_ids[: len(we)] = lp[we] * band.n_wide + _host(band.wide_idx)[we]
+
+    dev = graph.device
+    return GridBandAux(
+        src_rows=torch.as_tensor(src_rows, device=dev),
+        elem_ids=torch.as_tensor(elem_ids, device=dev),
+        wide_slots=torch.as_tensor(wide_slots, device=dev),
+        wide_ids=torch.as_tensor(wide_ids, device=dev),
+        win_off=band.win_off, cover=band.cover,
+        chunk_b=band.chunk_b, k_windows=band.k_windows, w_row=band.w_row,
+        n_chunks=band.n_chunks, n_wide=band.n_wide,
+    )
+
+
 def _runs(poses: np.ndarray, gap: int = 8):
     """Sorted observation poses -> list of [lo, hi] run intervals."""
     iv = []
@@ -215,7 +302,7 @@ _SEARCH_DL3 = (
 
 # the layout score's constants: a TPU v5e's measured tile-stream rate and
 # in-kernel cost per (chunk, window); kept so the layout is the JAX
-# package's (re-fitting them on the H100 is ROADMAP.md A.9)
+# package's and the two packages stay comparable (ROADMAP.md A.9)
 _STREAM_BW = 855e9
 _C_WIN = 0.44e-6
 

@@ -74,17 +74,3 @@ def lm_edge_blocks(
         chi2=lme.chi2,
     )
 
-
-def total_error(graph, huber_delta: float) -> torch.Tensor:
-    """Robustified chi^2 of the current state (residuals only) — the
-    ``error_fn`` of the Levenberg-Marquardt step rejection."""
-    od = res_ops.eval_odom_edges(
-        graph.poses, graph.odom.i, graph.odom.j, graph.odom.meas,
-        graph.odom.info, graph.odom.mask, huber_delta,
-    )
-    lme = res_ops.eval_landmark_edges(
-        graph.poses, graph.landmarks, graph.lm_edges.pose, graph.lm_edges.lm,
-        graph.lm_edges.meas, graph.lm_edges.info, graph.lm_edges.mask,
-        huber_delta,
-    )
-    return od.robust_err.sum() + lme.robust_err.sum()

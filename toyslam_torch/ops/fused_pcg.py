@@ -30,11 +30,12 @@ BA (dp=6, dl=3), ``KERNEL_DPS``.  :func:`fused_mode` picks one.  The preconditio
 version (:func:`fused_pcg_chunk_ref`, :func:`band_fused_pcg_chunk_ref`);
 on a CUDA tensor a wrapper launches its kernel or raises.
 
-Port of ``toyslam_tpu.ops.fused_pcg``.  Left out: the streamed "fold"
-coarse level and the bf16 PCR planes of the reference's band kernel, both
-workarounds for its on-chip memory (ROADMAP.md B2);
-``build_band_operator_grid`` and ``fused_precond_from_parts``, which serve
-``schur_grid`` (A.9).
+Where the gate declines both kernels the solve takes the plain PCG loop of
+``ops/schur.py``, as in the reference.  Port of
+``toyslam_tpu.ops.fused_pcg``.  Left out: the streamed "fold" coarse level
+and the bf16 PCR planes of the reference's band kernel, both workarounds
+for its on-chip memory (ROADMAP.md B2); every coarse level reaches the
+kernels as ``cinv`` and the restriction ``rmat``.
 """
 
 from __future__ import annotations
@@ -301,6 +302,57 @@ def build_band_operator(
     )
 
 
+def build_band_operator_grid(
+    hll_d: torch.Tensor,      # f32[M, dl, dl] damped landmark blocks
+    hpl_p: torch.Tensor,      # f32[N, Kp, dp, dl] pose-major hpl grid
+    lm_p: torch.Tensor,       # int64[N, Kp] landmark of each grid slot
+    hpp_diag: torch.Tensor,   # f32[N, dp, dp] damped pose diagonal
+    tupper: torch.Tensor,     # f32[N, dp, dp] chain superdiagonal (masked)
+    gband, n: int,
+) -> BandOperator:
+    """The streamed band operator straight from the grid assembly
+    (``ops/grid_schur.py``): the math of :func:`build_band_operator`, with
+    the low-rank blocks computed on the pose-major grid, the tile write
+    sourcing grid slots (``band_plan.GridBandAux``), the chain
+    superdiagonal read positionally, and no loop closures (the grid plan
+    holds chain odometry only).  The tile write's indices are unique, so
+    a plain indexed write is deterministic; the wide columns are summed
+    with ``index_add_`` where the reference has ``segment_sum``."""
+    dp, dl = hpl_p.shape[-2], hpl_p.shape[-1]
+    w_row, b_dl = gband.w_row, gband.chunk_b * dl
+    n_tiles = gband.n_chunks * gband.k_windows
+
+    lh = _chol_spd(hll_d)
+    el = _tri_inv_lower(lh).transpose(-1, -2)              # L^{-T}
+    blk = bm.mm(hpl_p, el[lm_p])                           # [N, Kp, dp, dl]
+    blk_flat = blk.reshape(-1, dp, dl)
+
+    flat = torch.zeros(n_tiles * dp * w_row * b_dl, dtype=_f32,
+                       device=blk.device)
+    flat[gband.elem_ids] = blk_flat[gband.src_rows].reshape(-1)
+    tiles = flat.reshape(gband.n_chunks, gband.k_windows, dp, w_row, b_dl)
+
+    u = None
+    if gband.n_wide:
+        nw = gband.n_wide
+        ws = gband.wide_slots                  # padded with N*Kp
+        ok = ws < blk_flat.shape[0]
+        wvals = blk_flat[torch.clamp(ws, max=blk_flat.shape[0] - 1)]
+        # padded entries go to a dump row past the n*nw real ones
+        wid = torch.where(ok, gband.wide_ids, n * nw)
+        uw = torch.zeros((n * nw + 1, dp, dl), dtype=_f32, device=blk.device)
+        uw.index_add_(0, wid, wvals * ok[:, None, None].to(_f32))
+        u = (uw[: n * nw].reshape(n, nw, dp, dl).permute(2, 1, 3, 0)
+             .reshape(dp, nw * dl, n).contiguous())
+
+    lower = schur._shift_down(tupper, 1).transpose(-1, -2)
+    return BandOperator(
+        tiles=tiles, win_off=gband.win_off, cover=gband.cover, u=u,
+        tdiag=_planes(hpp_diag), tupper=_planes(tupper),
+        tlower=_planes(lower),
+    )
+
+
 def build_fused_precond(
     d: schur.BlockSystem,
     hll_inv: torch.Tensor,
@@ -329,22 +381,55 @@ def build_fused_precond(
                               device=s_diag.device)
         binv = _planes(schur.inv_blocks(s_diag))
     else:
-        raise NotImplementedError(
+        raise ValueError(
             f"pcg_precond={precond!r}: the fused kernels take 'jacobi' or "
             "'tridiag' local preconditioners"
         )
     if coarse_kind != "coarse":
         return FusedPrecond(al, ga, binv, None, None)
     cinv = schur.build_coarse_precond(d, hll_inv, graph, coarse_group)
+    return FusedPrecond(al, ga, binv, *_coarse_operands(cinv, n, dp,
+                                                         coarse_group))
+
+
+def _coarse_operands(cinv: torch.Tensor, n: int, dp: int, group: int):
+    """The kernels' coarse operands from the component-major explicit
+    inverse ``[dp*nc, dp*nc]`` (row ``a*nc + c``): ``cinv [dp, dp, nc, nc]``
+    blocks and the 0/1 restriction ``rmat [Np, nc]`` over groups of
+    ``group`` poses."""
     nc = cinv.shape[0] // dp
-    # component-major rows/cols (a*nc + c) -> [a, b, nc, nc] blocks
     cinv_b = cinv.reshape(dp, nc, dp, nc).permute(0, 2, 1, 3).contiguous()
-    dev = s_diag.device
+    dev = cinv.device
     rmat = (
-        (torch.arange(n, device=dev) // coarse_group)[:, None]
+        (torch.arange(n, device=dev) // group)[:, None]
         == torch.arange(nc, device=dev)[None, :]
     ).to(_f32)
-    return FusedPrecond(al, ga, binv, cinv_b, rmat)
+    return cinv_b, rmat
+
+
+def fused_precond_from_parts(
+    local_kind: str,
+    local,                              # schur.TridiagPrecond or inv blocks
+    coarse_inv: torch.Tensor | None,    # [dp*nc, dp*nc] component-major
+    n: int,
+    dp: int,
+    coarse_group: int,
+) -> FusedPrecond:
+    """Re-lay a plain-loop preconditioner (the grid solver's ``(local,
+    coarse)``) into the kernels' plane layout; a coarse level comes with
+    its restriction ``rmat``, as from :func:`build_fused_precond`."""
+    if local_kind == "tridiag":
+        al = local.alphas.permute(0, 2, 3, 1).contiguous()
+        ga = local.gammas.permute(0, 2, 3, 1).contiguous()
+        binv = _planes(local.binv)
+    else:
+        al = ga = torch.zeros((0, dp, dp, n), dtype=_f32,
+                              device=local.device)
+        binv = _planes(local)
+    if coarse_inv is None:
+        return FusedPrecond(al, ga, binv, None, None)
+    return FusedPrecond(al, ga, binv,
+                        *_coarse_operands(coarse_inv, n, dp, coarse_group))
 
 
 def fused_precond_from_graph(cfg, graph, lam: torch.Tensor) -> FusedPrecond:
@@ -503,37 +588,28 @@ def band_device_bytes(dp: int, np_: int, band, mw: int, nlevels: int,
     return 4 * words
 
 
-def fused_mode(cfg, graph) -> str:
-    """The gate: "resident" when the resident kernel can run this graph,
-    else "band" when the graph carries a band layout (``plan.band``) whose
-    operands fit ``BAND_BUDGET_BYTES`` of device memory.
+def fused_mode(cfg, graph) -> str | None:
+    """The gate, from the config, the shapes and the budgets alone:
+    "resident" when the resident kernel can run this graph, else "band"
+    when the graph carries a band layout (``plan.band``) whose slabs fit a
+    block's shared memory and whose operands fit ``BAND_BUDGET_BYTES`` of
+    device memory, else None: the plain PCG loop (``schur.schur_solve``).
 
-    Everything the reference's gate routes elsewhere raises here, naming
-    what is missing: the plain PCG loop (``pcg_backend="xla"`` and the
-    reference's fallbacks, ROADMAP.md A.5)."""
+    None wherever the JAX package's gate declines its kernels:
+    ``pcg_backend="xla"``, ``pcg_unroll``, the "chunk" preconditioner,
+    loop closures with exact odometry Jacobians or in an SE(3) graph, a
+    coarse group that does not divide Np, and graphs past the resident
+    budget without a fitting band layout."""
     local_kind, _, coarse_kind = cfg.pcg_precond.partition("+")
     if cfg.pcg_backend == "xla" or cfg.pcg_unroll:
-        raise NotImplementedError(
-            "the plain PCG loop (the reference's pcg_backend='xla' / "
-            "pcg_unroll path) is not ported yet (ROADMAP.md, queue A: "
-            "pcg/schur_solve oracle)"
-        )
+        return None
     if graph.plan is None or graph.plan.fused is None:
         raise ValueError(
-            "the fused solve needs the gather plan: call "
+            "the Schur solve needs the gather plan: call "
             "toyslam_torch.ops.gather_plan.attach_plan(graph) first"
         )
     if local_kind not in ("jacobi", "tridiag"):
-        raise NotImplementedError(
-            f"pcg_precond={cfg.pcg_precond!r}: the 'chunk' preconditioner "
-            "runs only in the plain PCG loop, not ported yet (ROADMAP.md "
-            "A.8)"
-        )
-    if cfg.solver not in ("schur", "schur3d"):
-        raise NotImplementedError(
-            f"solver={cfg.solver!r}: the fused solve serves 'schur' and "
-            "'schur3d' (ROADMAP.md §A)"
-        )
+        return None
     # block sizes: SE(2) poses and 2D landmarks, or SE(3) poses and 3D points
     dp, dl = (6, 3) if cfg.solver == "schur3d" else (3, 2)
     n, m = graph.num_poses, graph.num_landmarks
@@ -541,53 +617,52 @@ def fused_mode(cfg, graph) -> str:
     if c and (cfg.exact_odom_jacobians or dp != 3):
         # the closure columns chol(W) need the A=-I/B=I odometry blocks
         # (off-diagonal -W, PSD); SE(3) odometry blocks are general
-        raise NotImplementedError(
-            "loop closures with exact odometry Jacobians, or in an SE(3) "
-            "graph, take the plain PCG loop, not ported yet (ROADMAP.md "
-            "A.5)"
-        )
+        return None
     if coarse_kind == "coarse" and n % cfg.pcg_coarse_group:
-        raise NotImplementedError(
-            f"pcg_coarse_group={cfg.pcg_coarse_group} does not divide the "
-            f"padded pose count {n}: the reference takes its plain PCG "
-            "loop, not ported yet (ROADMAP.md §A)"
-        )
+        return None
     nc = -(-n // cfg.pcg_coarse_group) if coarse_kind == "coarse" else 0
     mw = dl * m + dp * c
-    smem = chunk_smem_bytes(dp, n, mw, nc)
-    slab = 4 * dp * n * mw
-    if smem <= SMEM_BUDGET_BYTES and slab <= SLAB_BUDGET_BYTES:
+    if (chunk_smem_bytes(dp, n, mw, nc) <= SMEM_BUDGET_BYTES
+            and 4 * dp * n * mw <= SLAB_BUDGET_BYTES):
         return "resident"
     band = graph.plan.band
     if band is None or (band.dp, band.dl) != (dp, dl):
-        raise NotImplementedError(
-            f"graph with Np={n}, Mw={mw} exceeds the resident kernel's "
-            f"budget (shared memory {smem} > {SMEM_BUDGET_BYTES} B or V "
-            f"slabs {slab} > {SLAB_BUDGET_BYTES} B) and carries no band "
-            f"layout for dp={dp}, dl={dl} (plan.band, built by attach_plan "
-            "from 2048 SE(2) or 192 SE(3) poses): the reference takes its "
-            "plain PCG loop there, not ported yet (ROADMAP.md A.5)"
-        )
+        return None
     nlevels = max(1, (n - 1).bit_length()) if local_kind == "tridiag" else 0
-    b_mw = band.n_wide * dl + dp * c
+    if band_fits(dp, n, band, band.n_wide * dl + dp * c, nlevels, nc):
+        return "band"
+    return None
+
+
+def band_fits(dp: int, np_: int, band, mw: int, nlevels: int,
+              nc: int) -> bool:
+    """Whether the band kernel can run a layout on an H100: its slabs fit
+    a block's shared memory (``band_slab_plan``) and the band solve's
+    operands fit ``BAND_BUDGET_BYTES`` of device memory."""
     try:
-        plan = band_slab_plan(band.n_chunks, band.k_windows, dp,
-                              band.w_row, band.chunk_b * dl, b_mw,
-                              SMEM_BUDGET_BYTES, H100_SMS)
-    except ValueError as e:
-        raise NotImplementedError(
-            f"{e}: the reference takes its plain PCG loop there, not ported "
-            "yet (ROADMAP.md A.5)") from None
-    need = band_device_bytes(dp, n, band, b_mw, nlevels, nc)
-    if need > BAND_BUDGET_BYTES:
-        raise NotImplementedError(
-            f"the band solve of this graph needs {need} B of device memory "
-            f"(budget {BAND_BUDGET_BYTES} B; tile stack {band.tile_bytes} "
-            f"B; slabs of {plan.rows} x {plan.cols}, {plan.smem_bytes} B of "
-            "shared memory per block): the reference takes its plain PCG "
-            "loop there, not ported yet (ROADMAP.md A.5)"
-        )
-    return "band"
+        band_slab_plan(band.n_chunks, band.k_windows, dp, band.w_row,
+                       band.chunk_b * band.dl, mw, SMEM_BUDGET_BYTES,
+                       H100_SMS)
+    except ValueError:
+        return False
+    return band_device_bytes(dp, np_, band, mw, nlevels, nc) \
+        <= BAND_BUDGET_BYTES
+
+
+def fused_supported(cfg, graph) -> bool:
+    """Whether the gate admits one of the kernels."""
+    return fused_mode(cfg, graph) is not None
+
+
+def gated_mode(cfg, graph) -> str | None:
+    """:func:`fused_mode`, with ``pcg_backend="fused"`` where the gate
+    declines the kernels raising ``ValueError``, as in the JAX package."""
+    mode = fused_mode(cfg, graph)
+    if mode is None and cfg.pcg_backend == "fused":
+        raise ValueError(
+            "pcg_backend='fused' but the graph/config does not support the "
+            "fused PCG kernels (see ops/fused_pcg.py::fused_mode)")
+    return mode
 
 
 # --- the chunk: plain version ------------------------------------------
@@ -759,7 +834,7 @@ def _launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters,
     has_coarse = pre.cinv is not None
     nc = pre.cinv.shape[-1] if has_coarse else 0
     if dp not in KERNEL_DPS:
-        raise NotImplementedError(
+        raise ValueError(
             f"fused_pcg_chunk kernel: dp={dp}; it is built for dp in "
             f"{KERNEL_DPS} (SE(2), SE(3))"
         )
@@ -1052,7 +1127,7 @@ def _band_launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters,
     nc = pre.cinv.shape[-1] if has_coarse else 0
     cap = op.cover.shape[-1]
     if dp not in KERNEL_DPS:
-        raise NotImplementedError(
+        raise ValueError(
             f"band_fused_pcg_chunk kernel: dp={dp}; it is built for dp in "
             f"{KERNEL_DPS} (SE(2), SE(3))"
         )

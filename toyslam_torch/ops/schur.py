@@ -8,15 +8,18 @@ reduced pose system
 
 is solved by preconditioned conjugate gradients.  This module holds the
 blocks, their per-vertex sums, the damping, the small-block inverses, the
-block-tridiagonal PCR preconditioner build, the Galerkin coarse level
-(``build_coarse_precond``, ``spd_inverse``) and the linearize-solve that
-``GaussNewton`` calls, stateful when the preconditioner is refreshed only
-every ``pcg_precond_refresh`` iterations; the PCG loop itself is a fused
-kernel of ``ops/fused_pcg.py``.
+matrix-free Schur matvec (``schur_matvec``, and ``plan_matvec`` on the
+vertex-major ``PlanOperator``), the preconditioners (block-Jacobi, the
+block-tridiagonal PCR, the chunked block inverse, and the Galerkin coarse
+level of ``build_coarse_precond``/``spd_inverse``), the plain PCG loop
+(``pcg``, ``schur_solve``) and the linearize-solve that ``GaussNewton``
+calls, stateful when the preconditioner is refreshed only every
+``pcg_precond_refresh`` iterations.  The linearize-solve runs the fused
+kernels of ``ops/fused_pcg.py`` where their gate (``fused_mode``) admits
+the graph and the plain loop elsewhere, as the JAX package does.
 
-Subset of ``toyslam_tpu.ops.schur``.  Not here yet (ROADMAP.md §A): the
-plain ``schur_solve``/``pcg`` loop, ``coarse_apply`` and the chunk
-preconditioner.
+Port of ``toyslam_tpu.ops.schur``; left out are the ``axis_name`` hooks of
+the sharded solve (ROADMAP.md A.12).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from toyslam_torch.config import OptimizerConfig
 from toyslam_torch.models.graph import FactorGraph2D
@@ -201,6 +205,30 @@ def hpl_matvec(
     return gp.table_sum(bm.mv(sys.hpl, y[lm_lm]), plan.lm_by_pose)
 
 
+def hpp_matvec(
+    sys: BlockSystem, odom_i: torch.Tensor, odom_j: torch.Tensor,
+    x: torch.Tensor, plan
+) -> torch.Tensor:
+    """``Hpp @ x`` for ``x [N, dp]`` from the blocks alone: the diagonal
+    blocks plus the odometry off-diagonal products, summed per vertex
+    through the gather tables."""
+    off = gp.table_sum(bm.mv(sys.hpp_off, x[odom_j]), plan.odom_by_i)
+    off = off + gp.table_sum(bm.mtv(sys.hpp_off, x[odom_i]), plan.odom_by_j)
+    return bm.mv(sys.hpp_diag, x) + off
+
+
+def schur_matvec(
+    sys: BlockSystem, hll_inv: torch.Tensor, graph: FactorGraph2D,
+    x: torch.Tensor,
+) -> torch.Tensor:
+    """``S @ x`` without materializing S, in edge order (the oracle of the
+    vertex-major :func:`plan_matvec`)."""
+    plan = _plan(graph)
+    u = hlp_matvec(sys, graph.lm_edges.pose, x, plan)
+    w = hpl_matvec(sys, graph.lm_edges.lm, bm.mv(hll_inv, u), plan)
+    return hpp_matvec(sys, graph.odom.i, graph.odom.j, x, plan) - w
+
+
 def schur_s_diag(
     sys: BlockSystem, hll_inv: torch.Tensor, graph: FactorGraph2D
 ) -> torch.Tensor:
@@ -211,11 +239,73 @@ def schur_s_diag(
     return sys.hpp_diag - gp.table_sum(contrib, _plan(graph).lm_by_pose)
 
 
+class PlanOperator(NamedTuple):
+    """The damped Schur operator in vertex-major layout: the per-edge blocks
+    laid out once per linearization into landmark-major ``[M, Kl, ...]``
+    and pose-major ``[N, Kp, ...]`` grids (masked), so a PCG matvec reads
+    dense grids and gathers rows of the small state vectors only."""
+
+    hpp_diag: torch.Tensor   # [N, dp, dp] damped
+    hll_inv: torch.Tensor    # [M, dl, dl]
+    hpl_L: torch.Tensor      # [M, Kl, dp, dl] landmark-major blocks
+    pose_L: torch.Tensor     # int64[M, Kl] observing pose per slot
+    hpl_P: torch.Tensor      # [N, Kp, dp, dl] pose-major blocks
+    lm_P: torch.Tensor       # int64[N, Kp]
+    off_I: torch.Tensor      # [N, Ko, dp, dp] odometry blocks at (i, .)
+    j_I: torch.Tensor        # int64[N, Ko]
+    off_J: torch.Tensor      # [N, Ko, dp, dp] blocks at (., j), used transposed
+    i_J: torch.Tensor        # int64[N, Ko]
+
+
+def make_plan_operator(
+    d: BlockSystem, hll_inv: torch.Tensor, graph: FactorGraph2D
+) -> PlanOperator:
+    plan = _plan(graph)
+    lb, pb = plan.lm_by_lm, plan.lm_by_pose
+    oi, oj = plan.odom_by_i, plan.odom_by_j
+    return PlanOperator(
+        hpp_diag=d.hpp_diag,
+        hll_inv=hll_inv,
+        hpl_L=d.hpl[lb.idx] * lb.mask[..., None, None],
+        pose_L=graph.lm_edges.pose[lb.idx],
+        hpl_P=d.hpl[pb.idx] * pb.mask[..., None, None],
+        lm_P=graph.lm_edges.lm[pb.idx],
+        off_I=d.hpp_off[oi.idx] * oi.mask[..., None, None],
+        j_I=graph.odom.j[oi.idx],
+        off_J=d.hpp_off[oj.idx] * oj.mask[..., None, None],
+        i_J=graph.odom.i[oj.idx],
+    )
+
+
+def plan_matvec(op: PlanOperator, x: torch.Tensor) -> torch.Tensor:
+    """``S @ x`` on the vertex-major grids."""
+    u = bm.mtv(op.hpl_L, x[op.pose_L]).sum(1)
+    v = bm.mv(op.hll_inv, u)
+    w = bm.mv(op.hpl_P, v[op.lm_P]).sum(1)
+    off = (bm.mv(op.off_I, x[op.j_I]).sum(1)
+           + bm.mtv(op.off_J, x[op.i_J]).sum(1))
+    return bm.mv(op.hpp_diag, x) + (off - w)
+
+
+def plan_s_diag(op: PlanOperator) -> torch.Tensor:
+    """Diagonal blocks of S from the pose-major grid."""
+    contrib = bm.mm(bm.mm(op.hpl_P, op.hll_inv[op.lm_P]),
+                    op.hpl_P.transpose(-1, -2)).sum(1)
+    return op.hpp_diag - contrib
+
+
 def _shift_down(x: torch.Tensor, s: int) -> torch.Tensor:
     """``y[i] = x[i-s]`` with zero fill (block arrays, axis 0)."""
     if s >= x.shape[0]:
         return torch.zeros_like(x)
     return torch.cat([torch.zeros_like(x[:s]), x[:-s]], dim=0)
+
+
+def _shift_up(x: torch.Tensor, s: int) -> torch.Tensor:
+    """``y[i] = x[i+s]`` with zero fill."""
+    if s >= x.shape[0]:
+        return torch.zeros_like(x)
+    return torch.cat([x[s:], torch.zeros_like(x[:s])], dim=0)
 
 
 class TridiagPrecond(NamedTuple):
@@ -315,6 +405,20 @@ def build_tridiag_precond(
     )
 
 
+def tridiag_apply(pre: TridiagPrecond, r: torch.Tensor) -> torch.Tensor:
+    """Solve ``M z = r`` with the PCR factors (exact up to f32): L
+    shift-multiply-adds on ``r [N, d]``, then the block-diagonal ``binv``."""
+    s = 1
+    for l in range(pre.alphas.shape[0]):
+        r = (
+            r
+            + bm.mv(pre.alphas[l], _shift_down(r, s))
+            + bm.mv(pre.gammas[l], _shift_up(r, s))
+        )
+        s *= 2
+    return bm.mv(pre.binv, r)
+
+
 def chain_upper(
     sys: BlockSystem, odom_i: torch.Tensor, odom_j: torch.Tensor, n: int
 ) -> torch.Tensor:
@@ -326,6 +430,56 @@ def chain_upper(
     up = torch.zeros((n,) + sys.hpp_off.shape[1:], dtype=sys.hpp_off.dtype,
                      device=sys.hpp_off.device)
     return up.index_add_(0, odom_i, sys.hpp_off * m[:, None, None])
+
+
+def build_chunk_precond(
+    diag: torch.Tensor, upper: torch.Tensor, chunk: int
+) -> torch.Tensor:
+    """The chunked local preconditioner: the explicit inverse of the
+    block-tridiagonal part of S restricted to consecutive ``chunk``-pose
+    chunks (the chain coupling across chunk boundaries is dropped).
+
+    The diag/upper blocks go into dense ``[nb, chunk*d, chunk*d]`` chunk
+    matrices (row ``t*d + a``, t the pose within its chunk; the ragged
+    tail padded with identity rows), which are Jacobi-equilibrated (the
+    1e6 gauge prior would otherwise cost the f32 inverse its digits),
+    inverted and un-equilibrated.  ``diag [N,d,d]``, ``upper[v]`` the (v,
+    v+1) chain block.  Returns ``inv [nb, chunk*d, chunk*d]``."""
+    n, dp, _ = diag.shape
+    nb = -(-n // chunk)
+    pad = nb * chunk - n
+    t = torch.arange(n, device=diag.device)
+    keep = ((t % chunk) != (chunk - 1)) & (t < n - 1)
+    up = upper * keep[:, None, None].to(upper.dtype)
+    if pad:
+        eye = torch.eye(dp, dtype=diag.dtype, device=diag.device)
+        diag = torch.cat([diag, eye.expand(pad, dp, dp)], dim=0)
+        up = torch.cat([up, up.new_zeros((pad, dp, dp))], dim=0)
+    sd = diag.reshape(nb, chunk, dp, dp)
+    su = up.reshape(nb, chunk, dp, dp)
+    kd = chunk * dp
+    b = diag.new_zeros((nb, kd, kd))
+    tl = torch.arange(chunk, device=diag.device)
+    for a in range(dp):
+        for c in range(dp):
+            b[:, tl * dp + a, tl * dp + c] = sd[:, :, a, c]
+            b[:, tl[:-1] * dp + a, (tl[:-1] + 1) * dp + c] = su[:, :-1, a, c]
+            b[:, (tl[:-1] + 1) * dp + a, tl[:-1] * dp + c] = su[:, :-1, c, a]
+    s = torch.rsqrt(torch.clamp(torch.diagonal(b, dim1=-2, dim2=-1),
+                                min=1e-30))
+    scale = s[:, :, None] * s[:, None, :]
+    return torch.linalg.inv(b * scale) * scale
+
+
+def chunk_apply(inv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """``z = M^-1 r`` for the chunked preconditioner: one batched product,
+    in full float32 (M^-1 must stay symmetric definite for PCG)."""
+    n, dp = r.shape
+    nb, kd, _ = inv.shape
+    rp = F.pad(r, (0, 0, 0, nb * (kd // dp) - n))
+    with _full_f32_matmul():
+        zb = torch.einsum("bij,bj->bi", inv, rp.reshape(nb, kd))
+    return zb.reshape(-1, dp)[:n]
 
 
 @contextlib.contextmanager
@@ -468,6 +622,20 @@ def build_coarse_precond(
     return spd_inverse(sc)
 
 
+def coarse_apply(cinv: torch.Tensor, group: int,
+                 r: torch.Tensor) -> torch.Tensor:
+    """``R S_c^-1 R^T r``, the coarse correction ``[N, d] -> [N, d]``:
+    sums over the groups, one product with the component-major explicit
+    inverse (see :func:`build_coarse_precond`), and the broadcast back."""
+    n, dp = r.shape
+    nc = -(-n // group)      # the last group may be ragged
+    rc = F.pad(r, (0, 0, 0, nc * group - n)).reshape(nc, group, dp).sum(1)
+    with _full_f32_matmul():
+        zc = cinv @ rc.T.reshape(-1)
+    z = zc.reshape(dp, nc).T                            # [nc, dp]
+    return z[:, None, :].expand(nc, group, dp).reshape(nc * group, dp)[:n]
+
+
 class PCGResult(NamedTuple):
     x: torch.Tensor
     iterations: torch.Tensor
@@ -477,23 +645,193 @@ class PCGResult(NamedTuple):
 class SolveStats(NamedTuple):
     """Per-solve telemetry carried through the linearize-solve interface."""
 
-    pcg_iters: torch.Tensor      # i32[] PCG iterations used
-    pcg_residual: torch.Tensor   # f32[] final PCG residual norm
+    pcg_iters: torch.Tensor      # i32[] PCG iterations used (0 = direct)
+    pcg_residual: torch.Tensor   # f32[] final PCG residual norm (0 = direct)
+
+    @staticmethod
+    def direct(dtype=torch.float32, device=None) -> "SolveStats":
+        """The stats of a direct (factorized) solve."""
+        return SolveStats(
+            pcg_iters=torch.zeros((), dtype=torch.int32, device=device),
+            pcg_residual=torch.zeros((), dtype=dtype, device=device),
+        )
+
+
+def pcg(
+    matvec, precond_apply, rhs: torch.Tensor, tol: float, max_iters: int,
+    restart_every: int = 64, unroll: bool = False,
+) -> PCGResult:
+    """Preconditioned conjugate gradients over pose-space ``[N, d]``
+    tensors: the plain loop, the kernels' baseline and oracle.
+
+    The loop runs in chunks of ``restart_every`` iterations.  After each
+    chunk the true residual ``rhs - S x`` replaces the recurrence residual
+    and the search direction restarts: in float32 the recurrence drifts
+    from the true residual on ill-conditioned systems.  Within a chunk an
+    iteration that is done (converged, at ``max_iters``, or after a
+    breakdown, ``p^T S p <= 0`` or not finite, which stops the solve for
+    good) is a masked no-op, so the loop reads one flag to the host per
+    chunk and none per iteration.  ``unroll`` is the reference's XLA
+    cost-analysis harness and is not ported (ROADMAP.md "Do not port")."""
+    if unroll:
+        raise NotImplementedError(
+            "pcg_unroll: the JAX package's cost-analysis harness is not "
+            "ported (ROADMAP.md, 'Do not port')")
+
+    def dot(a, b):
+        return (a * b).sum()
+
+    atol2 = (tol ** 2) * dot(rhs, rhs)
+    n_chunks = -(-max_iters // restart_every)
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = precond_apply(r)
+    p = z
+    rz = dot(r, z)
+    it = torch.zeros((), dtype=torch.int32, device=rhs.device)
+    stop = torch.zeros((), dtype=torch.bool, device=rhs.device)
+    zero = torch.zeros_like(rz)
+    chunk = 0
+    while chunk < n_chunks and bool(
+        ((dot(r, r) > atol2) & ~stop).item()    # host sync, once a chunk
+    ):
+        for _ in range(restart_every):
+            ap = matvec(p)
+            pap = dot(p, ap)
+            breakdown = ~(pap > 0.0) | ~torch.isfinite(pap)
+            done = stop | breakdown | (dot(r, r) <= atol2) | (it >= max_iters)
+            alpha = torch.where(done, zero, rz / pap)
+            x = x + alpha * p
+            r = r - alpha * ap
+            z = precond_apply(r)
+            rz_new = dot(r, z)
+            beta = torch.where(
+                done, zero, rz_new / torch.where(rz == 0.0, 1.0, rz))
+            p = torch.where(done, p, z + beta * p)
+            rz = torch.where(done, rz, rz_new)
+            it = it + (~done).to(it.dtype)
+            stop = stop | breakdown
+        # true-residual replacement and direction restart
+        r = rhs - matvec(x)
+        z = precond_apply(r)
+        rz = dot(r, z)
+        p = z
+        chunk += 1
+    return PCGResult(x=x, iterations=it, residual_norm=torch.sqrt(dot(r, r)))
+
+
+class PrecondState(NamedTuple):
+    """The preconditioner of the plain PCG loop, built at one
+    linearization (the carry of the stateful solve when the gate declines
+    the kernels).  ``local``: a :class:`TridiagPrecond` ("tridiag"), the
+    chunk inverses ("chunk") or the inverse diagonal blocks of S
+    ("jacobi"); ``coarse``: the coarse level's explicit inverse, or None."""
+
+    local: object
+    coarse: torch.Tensor | None
+
+
+def _matvec_and_sdiag(d: BlockSystem, hll_inv: torch.Tensor,
+                      graph: FactorGraph2D):
+    """The S operator at the current (damped) linearization on the
+    vertex-major grids, and a thunk for the diagonal blocks of S (only a
+    preconditioner build needs them)."""
+    op = make_plan_operator(d, hll_inv, graph)
+    return (lambda x: plan_matvec(op, x)), (lambda: plan_s_diag(op))
+
+
+def build_precond(
+    d: BlockSystem,
+    hll_inv: torch.Tensor,
+    graph: FactorGraph2D,
+    s_diag: torch.Tensor,
+    precond: str,
+    coarse_group: int,
+    chunk: int = 64,
+) -> PrecondState:
+    """The plain loop's preconditioner at the current linearization:
+    "jacobi" (inverse diagonal blocks of S), "tridiag" (PCR on the
+    block-tridiagonal part of S), "chunk" (:func:`build_chunk_precond`),
+    each optionally "+coarse" (the additive Galerkin coarse level over
+    groups of ``coarse_group`` poses)."""
+    local_kind, _, coarse_kind = precond.partition("+")
+    if local_kind in ("tridiag", "chunk"):
+        upper = chain_upper(d, graph.odom.i, graph.odom.j, graph.num_poses)
+        local = (build_tridiag_precond(s_diag, upper)
+                 if local_kind == "tridiag"
+                 else build_chunk_precond(s_diag, upper, chunk))
+    else:
+        local = inv_blocks(s_diag)
+    coarse = None
+    if coarse_kind == "coarse":
+        coarse = build_coarse_precond(d, hll_inv, graph, coarse_group)
+    return PrecondState(local=local, coarse=coarse)
+
+
+def precond_apply_fn(pstate: PrecondState, precond: str, coarse_group: int):
+    """The ``z = M^-1 r`` closure of a built :class:`PrecondState`."""
+    local_kind, _, coarse_kind = precond.partition("+")
+    if local_kind == "tridiag":
+        local_apply = lambda r: tridiag_apply(pstate.local, r)  # noqa: E731
+    elif local_kind == "chunk":
+        local_apply = lambda r: chunk_apply(pstate.local, r)  # noqa: E731
+    else:
+        local_apply = lambda r: bm.mv(pstate.local, r)  # noqa: E731
+    if coarse_kind == "coarse":
+        return lambda r: (
+            local_apply(r) + coarse_apply(pstate.coarse, coarse_group, r)
+        )
+    return local_apply
+
+
+def schur_solve(
+    sys: BlockSystem,
+    graph: FactorGraph2D,
+    lam: torch.Tensor,
+    tol: float,
+    max_iters: int,
+    restart_every: int = 64,
+    precond: str = "tridiag",
+    coarse_group: int = 64,
+    pstate: PrecondState | None = None,
+    chunk: int = 64,
+    unroll: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, SolveStats]:
+    """Solve ``(H + lam I) dx = -b`` by Schur elimination and the plain PCG
+    loop.  A prebuilt ``pstate`` skips the preconditioner build (the
+    stateful refresh path).  Returns ``(dx_poses [N, dp], dx_landmarks
+    [M, dl], stats)``."""
+    plan = _plan(graph)
+    d = damp(sys, lam)
+    hll_inv = inv_blocks(d.hll)
+    rhs = -d.bp + hpl_matvec(d, graph.lm_edges.lm, bm.mv(hll_inv, d.bl), plan)
+    matvec, s_diag_fn = _matvec_and_sdiag(d, hll_inv, graph)
+    if pstate is None:
+        pstate = build_precond(d, hll_inv, graph, s_diag_fn(), precond,
+                               coarse_group, chunk)
+    res = pcg(matvec, precond_apply_fn(pstate, precond, coarse_group), rhs,
+              tol, max_iters, restart_every, unroll)
+    u = hlp_matvec(d, graph.lm_edges.pose, res.x, plan)
+    dx_l = bm.mv(hll_inv, -d.bl - u)
+    return res.x, dx_l, SolveStats(pcg_iters=res.iterations,
+                                   pcg_residual=res.residual_norm)
 
 
 def schur_linearize_solve(cfg: OptimizerConfig):
     """The linearize-solve that ``GaussNewton`` calls each iteration:
     assemble, then the fused PCG solve in the mode the gate
-    (``fused_pcg.fused_mode``) picks: the resident kernel or the streamed
-    band kernel.  The gate raises where the reference would take its plain
-    PCG loop.
+    (``fused_pcg.fused_mode``) picks, the resident or the streamed band
+    kernel, or the plain PCG loop (:func:`schur_solve`) where the gate
+    declines them.  ``pcg_backend="fused"`` where it declines raises
+    ``ValueError``.
 
     With ``cfg.pcg_precond_refresh != 1`` the solve is *stateful*: it
     exposes ``init_state(graph)`` and takes and returns a
-    ``(FusedPrecond, call_count)`` carry, so ``GaussNewton`` threads one
-    preconditioner through its loop.  It is rebuilt (at the current graph
-    and lambda) when ``calls % refresh == 0 and calls > 0``, so only for
-    ``refresh > 1``; ``refresh <= 0`` keeps the first one."""
+    ``(FusedPrecond | PrecondState, call_count)`` carry, so
+    ``GaussNewton`` threads one preconditioner through its loop.  It is
+    rebuilt (at the current graph and lambda) when ``calls % refresh == 0
+    and calls > 0``, so only for ``refresh > 1``; ``refresh <= 0`` keeps
+    the first one."""
     from toyslam_torch.ops import fused_pcg as fp
 
     def _assemble(graph: FactorGraph2D) -> BlockSystem:
@@ -504,13 +842,20 @@ def schur_linearize_solve(cfg: OptimizerConfig):
         )
 
     def _solve(graph, lam, pre=None):
-        mode = fp.fused_mode(cfg, graph)
+        mode = fp.gated_mode(cfg, graph)
         sys = _assemble(graph)
-        dx_p, dx_l, stats = fp.fused_schur_solve(
-            sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters,
-            cfg.pcg_precond, cfg.pcg_coarse_group, cfg.pcg_fused_chunk,
-            cfg.pcg_restart_every, pre=pre, mode=mode,
-        )
+        if mode is not None:
+            dx_p, dx_l, stats = fp.fused_schur_solve(
+                sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters,
+                cfg.pcg_precond, cfg.pcg_coarse_group, cfg.pcg_fused_chunk,
+                cfg.pcg_restart_every, pre=pre, mode=mode,
+            )
+        else:
+            dx_p, dx_l, stats = schur_solve(
+                sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters,
+                cfg.pcg_restart_every, cfg.pcg_precond, cfg.pcg_coarse_group,
+                pstate=pre, chunk=cfg.pcg_chunk, unroll=cfg.pcg_unroll,
+            )
         return dx_p, dx_l, sys.err, stats
 
     refresh = cfg.pcg_precond_refresh
@@ -521,17 +866,25 @@ def schur_linearize_solve(cfg: OptimizerConfig):
 
         return solve
 
+    def _build(graph: FactorGraph2D, lam: torch.Tensor):
+        if fp.gated_mode(cfg, graph) is not None:
+            return fp.fused_precond_from_graph(cfg, graph, lam)
+        d = damp(_assemble(graph), lam)
+        hll_inv = inv_blocks(d.hll)
+        _, s_diag_fn = _matvec_and_sdiag(d, hll_inv, graph)
+        return build_precond(d, hll_inv, graph, s_diag_fn(), cfg.pcg_precond,
+                             cfg.pcg_coarse_group, cfg.pcg_chunk)
+
     def init_state(graph: FactorGraph2D):
-        fp.fused_mode(cfg, graph)      # raises for what is not ported
         lam0 = torch.tensor(cfg.lambda_init, dtype=graph.poses.dtype,
                             device=graph.device)
-        return (fp.fused_precond_from_graph(cfg, graph, lam0), 0)
+        return (_build(graph, lam0), 0)
 
     def solve_stateful(graph: FactorGraph2D, lam: torch.Tensor, state):
         pre, calls = state
         # calls == 0 is excluded: init_state built at this graph and lambda
         if refresh > 1 and calls % refresh == 0 and calls > 0:
-            pre = fp.fused_precond_from_graph(cfg, graph, lam)
+            pre = _build(graph, lam)
         return _solve(graph, lam, pre) + ((pre, calls + 1),)
 
     solve_stateful.stateful = True

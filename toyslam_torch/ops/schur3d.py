@@ -9,10 +9,11 @@ sizes off the arrays, so the SE(2) solve machinery runs unchanged on the
 6/3 systems built here, with the kernels instantiated at dp=6.
 
 Port of ``toyslam_tpu.ops.schur3d``.  The per-vertex sums go through the
-graph's gather tables, as ``schur.assemble_blocks`` does.  Left out: the
-``axis_name``/psum hooks of the sharded solve (ROADMAP.md A.12) and the
-reference's plain PCG loop, taken where its gate declines the fused kernels
-(here the gate raises; ROADMAP.md A.5).
+graph's gather tables, as ``schur.assemble_blocks`` does.  Where the gate
+declines the kernels (``pcg_backend="xla"``, loop closures in an SE(3)
+graph, layouts past the budgets) the solve takes the plain PCG loop of
+``schur.schur_solve`` at dp=6, dl=3, as the reference does.  Left out: the
+``axis_name``/psum hooks of the sharded solve (ROADMAP.md A.12).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from toyslam_torch.ops import blockmath as bm
 from toyslam_torch.ops import edge_blocks3d as eb3
 from toyslam_torch.ops import gather_plan as gp
 from toyslam_torch.ops import residuals3d as res3
+from toyslam_torch.ops import schur
 from toyslam_torch.ops.schur import BlockSystem, _plan
 
 
@@ -106,23 +108,31 @@ def total_error_3d(
 def schur3d_linearize_solve(cfg: OptimizerConfig):
     """The linearize-solve of ``GaussNewton`` for SE(3) graphs (with
     ``retract=se3.retract``): assemble, then the fused PCG solve in the mode
-    the gate picks, with both kernels at dp=6.  Returns ``(dx_poses [N, 6],
-    dx_landmarks [M, 3], err, stats)``.  Like the reference's, this solve
-    carries no preconditioner state: it builds one per call whatever
-    ``pcg_precond_refresh`` says."""
+    the gate picks, with both kernels at dp=6, or the plain PCG loop where
+    the gate declines them (``pcg_backend="fused"`` there raises
+    ``ValueError``).  Returns ``(dx_poses [N, 6], dx_landmarks [M, 3], err,
+    stats)``.  Like the reference's, this solve carries no preconditioner
+    state: it builds one per call whatever ``pcg_precond_refresh`` says."""
     from toyslam_torch.ops import fused_pcg as fp
 
     def solve(graph: FactorGraph3D, lam: torch.Tensor):
-        mode = fp.fused_mode(cfg, graph)
+        mode = fp.gated_mode(cfg, graph)
         sys = assemble_blocks_3d(
             graph, huber_delta=cfg.huber_delta, fixed_prior=cfg.fixed_prior,
             exact_odom_jacobians=cfg.exact_odom_jacobians,
         )
-        dx_p, dx_l, stats = fp.fused_schur_solve(
-            sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters,
-            cfg.pcg_precond, cfg.pcg_coarse_group, cfg.pcg_fused_chunk,
-            cfg.pcg_restart_every, mode=mode,
-        )
+        if mode is not None:
+            dx_p, dx_l, stats = fp.fused_schur_solve(
+                sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters,
+                cfg.pcg_precond, cfg.pcg_coarse_group, cfg.pcg_fused_chunk,
+                cfg.pcg_restart_every, mode=mode,
+            )
+        else:
+            dx_p, dx_l, stats = schur.schur_solve(
+                sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters,
+                cfg.pcg_restart_every, cfg.pcg_precond, cfg.pcg_coarse_group,
+                chunk=cfg.pcg_chunk, unroll=cfg.pcg_unroll,
+            )
         return dx_p, dx_l, sys.err, stats
 
     return solve

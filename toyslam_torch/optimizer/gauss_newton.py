@@ -42,13 +42,44 @@ class OptimizeResult(NamedTuple):
     lambdas: torch.Tensor         # f32[iterations] damping per GN iter
 
 
+def dense_linearize_solve(cfg: OptimizerConfig):
+    """Dense H assembly (``ops/assemble.py``) and a direct solve:
+    ``dense_factorization="cholesky"`` (the default) or "lu"."""
+    from toyslam_torch.ops import assemble
+    from toyslam_torch.ops.schur import SolveStats
+
+    def solve(graph: FactorGraph2D, lam: torch.Tensor):
+        sys = assemble.assemble_dense(
+            graph, huber_delta=cfg.huber_delta, fixed_prior=cfg.fixed_prior,
+            exact_odom_jacobians=cfg.exact_odom_jacobians,
+        )
+        d = sys.H.shape[0]
+        h_reg = sys.H + lam * torch.eye(d, dtype=sys.H.dtype,
+                                        device=sys.H.device)
+        if cfg.dense_factorization == "cholesky":
+            chol = torch.linalg.cholesky(h_reg)
+            dx = torch.cholesky_solve(-sys.b[:, None], chol)[:, 0]
+        else:
+            dx = torch.linalg.solve(h_reg, -sys.b)
+        n = graph.num_poses
+        dx_p = dx[: 3 * n].reshape(n, 3)
+        dx_l = dx[3 * n:].reshape(graph.num_landmarks, 2)
+        return dx_p, dx_l, sys.err, SolveStats.direct(sys.H.dtype,
+                                                      sys.H.device)
+
+    return solve
+
+
 @dataclasses.dataclass(frozen=True)
 class GaussNewton:
     """Configured optimizer.  ``solve`` is a linearize-solve
-    ``(graph, lam) -> (dx_poses, dx_landmarks, err, stats)``; by default the
-    Schur/fused-PCG solve of ``config.solver``: "schur" (SE(2) graphs,
-    ``se2.retract``) or "schur3d" (SE(3) BA graphs, ``se3.retract``).
-    Landmarks update additively in both."""
+    ``(graph, lam) -> (dx_poses, dx_landmarks, err, stats)``; by default
+    that of ``config.solver``: "dense" (:func:`dense_linearize_solve`),
+    "schur" (Schur elimination with the fused-PCG kernels or the plain PCG
+    loop), "schur_grid" (``ops/grid_schur.py``), all on SE(2) graphs with
+    ``se2.retract``, or "schur3d" (SE(3) BA graphs, ``se3.retract``).
+    Landmarks update additively in all.  A solve with a ``prepare``
+    attribute lays out the graph for itself before the loop."""
 
     config: OptimizerConfig = OptimizerConfig()
     solve: Callable | None = None
@@ -61,19 +92,20 @@ class GaussNewton:
         cfg = self.config
         se3d = cfg.solver == "schur3d"
         if self.solve is None:
-            if cfg.solver not in ("schur", "schur3d"):
-                raise NotImplementedError(
-                    f"solver={cfg.solver!r}: 'schur' and 'schur3d' are "
-                    "ported (dense: ROADMAP.md A.4/A.15; schur_grid: A.9)"
-                )
-            if se3d:
+            if cfg.solver == "schur":
+                from toyslam_torch.ops.schur import schur_linearize_solve
+
+                solve = schur_linearize_solve(cfg)
+            elif cfg.solver == "schur_grid":
+                from toyslam_torch.ops.grid_schur import grid_linearize_solve
+
+                solve = grid_linearize_solve(cfg)
+            elif se3d:
                 from toyslam_torch.ops.schur3d import schur3d_linearize_solve
 
                 solve = schur3d_linearize_solve(cfg)
             else:
-                from toyslam_torch.ops.schur import schur_linearize_solve
-
-                solve = schur_linearize_solve(cfg)
+                solve = dense_linearize_solve(cfg)
             object.__setattr__(self, "solve", solve)
         if self.retract is None:
             object.__setattr__(self, "retract",
@@ -86,17 +118,25 @@ class GaussNewton:
                     total_error_3d, huber_delta=cfg.huber_delta,
                     exact_odom_jacobians=cfg.exact_odom_jacobians)
             else:
-                from toyslam_torch.ops.edge_blocks import total_error
+                from toyslam_torch.ops.assemble import total_error
 
-                err = functools.partial(total_error,
-                                        huber_delta=cfg.huber_delta)
+                err = functools.partial(
+                    total_error, huber_delta=cfg.huber_delta,
+                    exact_odom_jacobians=cfg.exact_odom_jacobians)
             object.__setattr__(self, "error_fn", err)
 
     def _prepare(self, graph: FactorGraph2D) -> FactorGraph2D:
-        """Attach the gather tables and, on large graphs, the band layout
-        (host-side, once per graph structure).  The band search is skipped
-        when the config pins the plain PCG loop, which never streams it."""
-        if self._builtin_solver and graph.plan is None:
+        """Lay the graph out for the solve, host-side, once per graph
+        structure: the solve's own ``prepare`` where it has one (the grid
+        plan of "schur_grid"), else, for the built-in Schur solves, the
+        gather tables and, on large graphs, the band layout.  The band
+        search is skipped when the config pins the plain PCG loop, which
+        never streams it."""
+        prep = getattr(self.solve, "prepare", None)
+        if prep is not None:
+            return prep(graph)
+        if (self._builtin_solver and self.config.solver in ("schur", "schur3d")
+                and graph.plan is None):
             from toyslam_torch.ops.gather_plan import attach_plan
 
             graph = attach_plan(
