@@ -76,13 +76,60 @@ Run from the root of a checkout.  Phases, each of which must pass:
    layout and shapes (fresh, carried, rerun bits);
 18. the data of the band-vs-grid cost model (line ``grid_gate_fit``): the
    band operator's build, B2's cost per trip and the plain grid loop's per
-   iteration at three layouts, beside the model's prediction.
+   iteration at three layouts, beside the model's prediction;
+19. the serving path at full width, in this process: ``PyGraphServer`` and
+   then ``native_server(backend="torch")`` on a free port with
+   ``device="cuda"``; one ``GraphClient`` connection sends the 150-pose graph
+   three times and the 2000-pose graph once (each 150-pose answer within
+   phase 3's ATE gate, the first two bit-identical, the remote poses equal
+   to a local optimize of the decoded graph at 1e-5, 25 B1 launches and no
+   plain-version call per request, ``server.error`` None; wall, codec,
+   layout and solve ms per request on the lines ``serve_request``), then
+   two clients at once, then ``python -m toyslam_torch run --remote`` in
+   process against the open port ("remote") and a closed one ("local");
+   B1's chunk timed against its plain version and its bound on the decoded
+   150-pose and 2000-pose requests' own operands (line ``serve_kernel``);
+20. ``run --snapshot --profile`` in process, then ``load_snapshot`` and
+   one more optimize of the loaded graph on the card;
+21. ``run --live --optimize-every 50 --save-plot`` at 150 steps in process:
+   ATE below dead reckoning's, the PNG written (where matplotlib is
+   installed), kernel launches > 0, frames/s;
+22. the 100k row: the JAX package's ``band-100k-jacobi-cg128``
+   (scripts/exp_band100k.py) through ``schur_grid`` and B2 at nc=784, held
+   to its recorded chi^2 (``BAND100K_REF``: first at rtol 1e-4, final
+   within 1 %, 60 PCG iterations in each of 10 GN iterations), with the
+   gate's decision, ``band_device_bytes``, the host set-up seconds,
+   GN-iter/s, and B2 at that layout timed against its plain version and
+   its bound with its per-phase split (line ``band100k_phase_split``) and
+   held against its plain version on a seeded system of the same shapes;
+23. the JAX package's plateau-100k-revisit-incr-init row
+   (scripts/bench_plateau.py::run_100k_incr, without its chaining): the
+   default-noise 100k graph put inside the Gauss-Newton basin by
+   ``incremental_init(window=4096, iters_per_prefix=5)`` and optimized
+   with 80 ``schur_grid`` iterations under ``pcg_backend="auto"`` (the
+   plain grid loop at this stack), held to 1.5 times the JAX package's
+   recorded final chi^2; then B2 on that path (``tridiag+coarse``: L=17,
+   nc=1568, a chunk of 15): 40 iterations held to 1.5 times the plain
+   loop's chi^2 at that iteration, one launch timed against its plain
+   version and its bound, and the kernel held against its plain version
+   on a seeded system of that layout and those shapes.
+
+``python3 chip_smoke.py --only incr100k_diag`` (development, in no default
+run) takes the initialised state of phase 23 through 80 iterations six
+ways: B2 with a chunk of 16 and of 15, its plain version in its place with
+both chunks, the plain grid loop, and B2 with every launch also run through
+its plain version from the same state (line ``incr100k_diag_trace``).
+
+``python3 chip_smoke.py --only serve,snapshot`` runs the named phases alone
+(the names are those of the ``phase <name>: ok`` lines) for development; it
+prints no result line.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 its path, largest difference from the plain version, ms, plain_ms,
-bound_ms, bound_by, library_ms; the same for B1 and B2 at dp=6 and for B2
-on the grid path); the last line is ``{"ok": true,
-"device": {...}}``, printed only when every phase passed.
+bound_ms, bound_by, library_ms; the same for B1 and B2 at dp=6, for B2 on
+the grid path, at 100k and on the incrementally initialised 100k graph,
+and for B1 on the serving path at both request sizes); the last line is
+``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device the script exits non-zero and prints no result.
 """
 
@@ -218,6 +265,24 @@ GRID_REF = {
                                      ate=1.4336570501327515,
                                      ate_dr=40.60987854003906),
 }
+
+
+# The 100k row: scripts/exp_band100k.py's band-100k-jacobi-cg128
+# (make_large_problem's arguments, the low-noise model, the OptimizerConfig
+# fields) and the JAX package's recorded algorithmic values for it
+# (BENCH_BAND100K.json: chi^2 and PCG iteration counts; not speeds).
+BAND100K_GRAPH = dict(num_poses=100_000, num_landmarks=50_000, obs_per_pose=6,
+                      seed=0, laps=2, pose_bucket=1024, landmark_bucket=1024,
+                      edge_bucket=8192)
+BAND100K_NOISE = dict(position_std=0.05, orientation_std=math.radians(0.2))
+BAND100K_CFG = dict(
+    iterations=10, lr=1.0, solver="schur_grid", exact_odom_jacobians=True,
+    pcg_tol=1e-3, pcg_max_iters=60, pcg_restart_every=30,
+    pcg_precond="jacobi+coarse", pcg_coarse_group=128, pcg_precond_refresh=5,
+    pcg_backend="fused", pcg_fused_chunk=15,
+)
+BAND100K_REF = dict(chi2_first=4245268.0, chi2_final=23301.2, pcg_iters=60,
+                    final_rtol=1e-2)
 
 
 def log(msg: str) -> None:
@@ -784,7 +849,7 @@ def random_windows(np_, n_chunks, k_win, seed):
 
 
 def synthetic_band_system(np_, win_off, w_row, b_dl, mw, nlevels, group,
-                          eps, seed, device, dp=3):
+                          eps, seed, device, dp=3, galerkin=True):
     """A seeded SPD system in the band kernel's layout whose CG is slow.
 
     ``T`` is a diagonally dominant block chain.  ``V`` is a tile stack on
@@ -798,7 +863,9 @@ def synthetic_band_system(np_, win_off, w_row, b_dl, mw, nlevels, group,
     preconditioner is ``nlevels`` PCR levels on ``T`` (L=0: its block
     diagonal) and, with ``group``, the exact Galerkin coarse level of ``S``
     over groups of ``group`` poses (``R^T S R`` from one float64 plain
-    matvec per coarse column)."""
+    matvec per coarse column) or, with ``galerkin=False``, that of ``T``
+    alone (``R^T T R`` in closed form: still SPD, and cheap where the
+    stack is GBs and the coarse level has hundreds of groups)."""
     import numpy as np
     import torch
 
@@ -876,17 +943,32 @@ def synthetic_band_system(np_, win_off, w_row, b_dl, mw, nlevels, group,
         nc = -(-np_ // group)
         gid = torch.arange(np_, device=device) // group
         rmat64 = (gid[:, None] == torch.arange(nc, device=device)).double()
-        op64 = op._replace(**{f: getattr(op, f).double() for f in (
-            "tiles", "u", "tdiag", "tupper", "tlower")})
         sc = torch.zeros((dp, nc, dp, nc), dtype=torch.float64,
                          device=device)
-        for b in range(dp):
-            for g in range(nc):
-                e = torch.zeros((dp, np_), dtype=torch.float64,
-                                device=device)
-                e[b] = rmat64[:, g]
-                sc[:, :, b, g] = fp.band_matvec_ref(op64, e) @ rmat64
-        del op64
+        if galerkin:
+            op64 = op._replace(**{f: getattr(op, f).double() for f in (
+                "tiles", "u", "tdiag", "tupper", "tlower")})
+            for b in range(dp):
+                for g in range(nc):
+                    e = torch.zeros((dp, np_), dtype=torch.float64,
+                                    device=device)
+                    e[b] = rmat64[:, g]
+                    sc[:, :, b, g] = fp.band_matvec_ref(op64, e) @ rmat64
+            del op64
+        else:
+            gidn = np.arange(np_) // group
+            inner = gidn[:-1] == gidn[1:]        # p and p+1 in one group
+            blocks = np.zeros((nc, dp, dp))
+            np.add.at(blocks, gidn, diag)
+            np.add.at(blocks, gidn[:-1][inner],
+                      upper[:-1][inner]
+                      + upper[:-1][inner].transpose(0, 2, 1))
+            edge = np.nonzero(~inner)[0]         # last pose of groups 0..nc-2
+            gi = torch.arange(nc, device=device)
+            sc[:, gi, :, gi] = dev_t(blocks, torch.float64)
+            up = dev_t(upper[edge], torch.float64)
+            sc[:, gi[:-1], :, gi[1:]] = up
+            sc[:, gi[1:], :, gi[:-1]] = up.transpose(1, 2)
         sc_inv = torch.linalg.inv(sc.reshape(dp * nc, dp * nc))
         cinv = sc_inv.reshape(dp, nc, dp, nc).permute(0, 2, 1, 3).float()
         cinv, rmat = cinv.contiguous(), rmat64.float()
@@ -1702,8 +1784,764 @@ def phase_grid_gate_fit(graphs, device):
     log("grid_gate_fit " + json.dumps(out))
     return out
 
+# --- phases 19-21: the serving path, snapshots, the live loop -------------
 
-def main() -> int:
+
+class PlainCalls:
+    """Counts calls of the kernels' plain versions and of the plain PCG
+    loop while active: the serving path on the card must make none."""
+
+    NAMES = (("fused_pcg", "fused_pcg_chunk_ref"),
+             ("fused_pcg", "band_fused_pcg_chunk_ref"), ("schur", "pcg"))
+
+    def __enter__(self):
+        import functools
+        import importlib
+
+        self.count = 0
+        self._saved = []
+        for mod_name, name in self.NAMES:
+            mod = importlib.import_module("toyslam_torch.ops." + mod_name)
+            fn = getattr(mod, name)
+
+            @functools.wraps(fn)
+            def counted(*args, _fn=fn, **kw):
+                self.count += 1
+                return _fn(*args, **kw)
+
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def cli_json(argv):
+    """``python -m toyslam_torch <argv>`` in process: (exit code, the JSON
+    line it printed)."""
+    import contextlib
+    import io
+
+    from toyslam_torch import app
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = app.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    return code, (json.loads(lines[-1]) if lines else {})
+
+
+def serve_connection(port, requests):
+    """One ``GraphClient`` connection: each graph of ``requests`` sent in turn.
+    Returns per request the answer, the wall ms and the launch counts."""
+    import asyncio
+
+    from toyslam_torch.io.client import GraphClient
+
+    async def go():
+        client = GraphClient("127.0.0.1", port)
+        await client.connect()
+        out = []
+        try:
+            for graph in requests:
+                reset_counts()
+                t0 = time.perf_counter()
+                answer = await client.optimize(graph)
+                out.append((answer, (time.perf_counter() - t0) * 1e3,
+                            read_counts()))
+        finally:
+            await client.close()
+        return out
+
+    return asyncio.run(go())
+
+
+def serve_concurrent(port, requests):
+    """One client per graph of ``requests``, all in flight at once."""
+    import asyncio
+
+    from toyslam_torch.io.client import GraphClient
+
+    async def one(graph):
+        client = GraphClient("127.0.0.1", port)
+        await client.connect()
+        try:
+            return await client.optimize(graph)
+        finally:
+            await client.close()
+
+    async def go():
+        return await asyncio.gather(*(one(g) for g in requests))
+
+    return asyncio.run(go())
+
+
+def serve_chunk(gn, gdev):
+    """One fresh B1 chunk on the iteration-0 operands of a decoded request:
+    its shapes, the kernel's and the plain version's time, the bound."""
+    state, layers = layer_system(gn, gn._prepare(gdev))
+    for _, fn in layers[:4]:        # assemble, eliminate, precond, operator
+        fn()
+    op, pre, rhs2 = state["op"], state["pre"], state["rhs2"]
+    chunk = gn.config.pcg_fused_chunk
+    return {"shapes": {"np": rhs2.shape[1], "mw": op.u.shape[-1],
+                       "pcr_levels": pre.alphas.shape[0]},
+            "chunk_ms": chunk_times(op, pre, rhs2, chunk, reps=20),
+            "bound": chunk_bound(op, pre, rhs2, chunk)}
+
+
+def phase_serve(device):
+    """The serving path: both servers answer a client connection, two clients
+    at once and the CLI's ``run --remote`` through B1 on the card."""
+    import numpy as np
+    import torch
+
+    from toyslam_torch.io import codec
+    from toyslam_torch.io.server import (
+        PyGraphServer,
+        native_server,
+        torch_optimize_fn,
+    )
+    from toyslam_torch.optimizer import GaussNewton
+    from toyslam_torch.sim import frontend
+
+    cfg = main_config()
+    sims = {n: frontend.simulate(main_config(n).sim) for n in (150, 2000)}
+    graphs = {n: frontend.build_graph(sim, cfg)[0] for n, sim in sims.items()}
+    # what a server must answer: a local optimize of the decoded graph
+    gn = GaussNewton(cfg.optimizer)
+    t0 = time.perf_counter()
+    wire = codec.graph_to_bytes(graphs[150])
+    t1 = time.perf_counter()
+    decoded = codec.bytes_to_graph(wire)
+    t2 = time.perf_counter()
+    local = gn.optimize(decoded.to(device)).graph.poses.cpu()
+    host = {"wire_bytes_150": len(wire), "encode_ms_150": (t1 - t0) * 1e3,
+            "decode_ms_150": (t2 - t1) * 1e3}
+    log("serve_codec " + json.dumps(host))
+    real = graphs[150].pose_mask > 0.5
+
+    def ate(answer, n):
+        gt = sims[n].poses_gt
+        return frontend.ate_rmse(answer.poses[: gt.shape[0]].numpy(), gt)
+
+    ate_dr_2000 = frontend.ate_rmse(sims[2000].poses_dr, sims[2000].poses_gt)
+    out, failed = {}, []
+    servers = {
+        "python": lambda: PyGraphServer(
+            torch_optimize_fn(cfg.optimizer, device), port=0),
+        "native": lambda: native_server(
+            backend="torch", cfg=cfg.optimizer, port=0, device=device),
+    }
+    for kind, make in servers.items():
+        with make() as server, PlainCalls() as plain:
+            timings = server.optimize_fn.timings
+            answers = serve_connection(
+                server.port, [graphs[150]] * 3 + [graphs[2000]])
+            error_after_connection = server.error
+            rows = []
+            for (answer, wall_ms, launches), t, n in zip(
+                    answers, list(timings), (150, 150, 150, 2000)):
+                rows.append({
+                    "server": kind, "poses": n, "wall_ms": wall_ms,
+                    "to_device_ms": t["to_device_ms"],
+                    "serve_layout_ms": t["layout_ms"],
+                    "solve_ms": t["solve_ms"],
+                    "codec_transport_ms": wall_ms - sum(t.values()),
+                    "ate_rmse": ate(answer, n), "kernel_launches": launches})
+                log("serve_request " + json.dumps(rows[-1]))
+            a150 = [r[0] for r in answers[:3]]
+            both = serve_concurrent(server.port, [graphs[150], graphs[2000]])
+            error_after_concurrent = server.error
+            reset_counts()
+            code, cli = cli_json(["run", "--remote",
+                                  f"127.0.0.1:{server.port}"])
+            cli_launches = read_counts()
+            plain_calls = plain.count
+        checks = {
+            "server.error is None": error_after_connection is None
+            and error_after_concurrent is None and server.error is None,
+            "150-pose ATE": all(
+                abs(r["ate_rmse"] - ATE_REF) <= ATE_TOL for r in rows[:3]),
+            "2000-pose ATE below dead reckoning":
+                rows[3]["ate_rmse"] < ate_dr_2000,
+            "first and second answers bit-identical":
+                torch.equal(a150[0].poses, a150[1].poses)
+                and torch.equal(a150[0].landmarks, a150[1].landmarks),
+            "remote equals local at 1e-5": bool(np.allclose(
+                a150[0].poses[real].numpy(), local[real].numpy(),
+                rtol=1e-5, atol=1e-5)),
+            "25 B1 launches per 150-pose request": all(
+                r["kernel_launches"] == {"fused_pcg_chunk": 25,
+                                         "band_fused_pcg_chunk": 0}
+                for r in rows[:3]),
+            "2000-pose request through B1":
+                rows[3]["kernel_launches"]["fused_pcg_chunk"] > 0
+                and rows[3]["kernel_launches"]["band_fused_pcg_chunk"] == 0,
+            "no plain-version call": plain_calls == 0,
+            "concurrent clients: each its own answer":
+                torch.equal(both[0].poses, a150[0].poses)
+                and torch.equal(both[1].poses, answers[3][0].poses),
+            "run --remote": code == 0 and cli.get("backend") == "remote"
+            and abs(cli["ate_rmse"] - ATE_REF) <= ATE_TOL
+            and cli["kernel_launches"] == 25
+            and cli_launches["fused_pcg_chunk"] == 25,
+        }
+        out[kind] = {"requests": rows, "checks": checks,
+                     "remote_cli": cli, "plain_calls": plain_calls}
+        failed += [f"{kind}: {k}" for k, ok in checks.items() if not ok]
+    # B1's chunk on what a request's solve gives it: the decoded 150-pose
+    # and 2000-pose graphs, laid out as the callback lays them out
+    out["chunk"] = {
+        150: serve_chunk(gn, decoded.to(device)),
+        2000: serve_chunk(gn, codec.bytes_to_graph(
+            codec.graph_to_bytes(graphs[2000])).to(device))}
+    log("serve_kernel " + json.dumps(out["chunk"]))
+    # nothing listens on port 1: the CLI falls back to the local optimizer
+    reset_counts()
+    code, cli = cli_json(["run", "--remote", "127.0.0.1:1"])
+    launches = read_counts()
+    checks = {
+        "fallback": code == 0 and cli.get("backend") == "local"
+        and cli["device"] == "cuda"
+        and abs(cli["ate_rmse"] - ATE_REF) <= ATE_TOL
+        and cli["kernel_launches"] == 25
+        and launches["fused_pcg_chunk"] == 25,
+    }
+    out["fallback_cli"] = cli
+    failed += [k for k, ok in checks.items() if not ok]
+    log("serve " + json.dumps({
+        "checks": {k: out[k]["checks"] for k in servers},
+        "plain_calls": {k: out[k]["plain_calls"] for k in servers},
+        "remote_cli": {k: out[k]["remote_cli"] for k in servers},
+        "fallback_cli": cli}))
+    if failed:
+        raise AssertionError(f"serving path checks failed: {failed}")
+    return out
+
+
+def phase_snapshot(device):
+    """``run --snapshot --profile`` in process (the trace holds CUDA
+    activities), then ``load_snapshot`` and one more optimize of the loaded
+    graph on the card (it continues the descent)."""
+    import tempfile
+
+    import torch
+
+    from toyslam_torch.io.snapshot import load_snapshot
+    from toyslam_torch.optimizer import GaussNewton
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path, trace = str(Path(tmp) / "run.npz"), Path(tmp) / "trace"
+        reset_counts()
+        code, cli = cli_json(["run", "--snapshot", path,
+                              "--profile", str(trace)])
+        first = read_counts()
+        graph, meta = load_snapshot(path)
+        trace_bytes = sum(f.stat().st_size for f in trace.iterdir())
+    reset_counts()
+    res = GaussNewton(main_config().optimizer).optimize(graph.to(device))
+    errors = res.errors.cpu().numpy()[: res.iterations_run]
+    second = read_counts()
+    out = {"cli": cli, "resumed_chi2": errors.tolist(),
+           "trace_bytes": trace_bytes, "kernel_launches": [first, second]}
+    checks = {
+        "exit 0": code == 0 and cli.get("snapshot") == path,
+        "profile trace written": trace_bytes > 10_000
+        and cli.get("profile_trace") == str(trace),
+        "metadata": meta["metrics"]["chi2_final"] == cli["chi2_final"],
+        "ate": abs(cli["ate_rmse"] - ATE_REF) <= ATE_TOL,
+        "the loaded graph is the optimized one":
+            int(graph.pose_mask.sum()) == 150 and graph.plan is None
+            and errors[0] < cli["chi2_final"],
+        "descent continues": errors[-1] < errors[0]
+        and bool(torch.isfinite(res.graph.poses).all()),
+        "B1 launched both times": first["fused_pcg_chunk"] == 25
+        and second["fused_pcg_chunk"] > 0,
+    }
+    log("snapshot " + json.dumps(out))
+    failed_checks("snapshot", checks)
+    return out
+
+
+def phase_live(device):
+    """``run --live --optimize-every 50 --save-plot`` at 150 steps in
+    process, on the card.  matplotlib is an optional dependency: on a
+    machine without it the loop runs without ``--save-plot`` (the line
+    ``live`` says so) and the PNG check is left to the CPU tests."""
+    import importlib.util
+    import tempfile
+
+    plot = importlib.util.find_spec("matplotlib") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        png = Path(tmp) / "live.png"
+        reset_counts()
+        code, cli = cli_json(
+            ["run", "--live", "--optimize-every", "50", "--steps", "150"]
+            + (["--save-plot", str(png)] if plot else []))
+        launches = read_counts()
+        png_bytes = png.stat().st_size if png.exists() else 0
+    out = {"cli": cli, "matplotlib": plot, "png_bytes": png_bytes,
+           "kernel_launches": launches}
+    if not plot:
+        log("live: matplotlib is not installed here, so --save-plot and the "
+            "PNG check were left out of this run")
+    checks = {
+        "exit 0": code == 0 and cli.get("device") == "cuda",
+        "frames": cli["frames"] == 149 and cli["optimizations"] == 3,
+        "ate below dead reckoning":
+            cli["ate_rmse"] < cli["ate_dead_reckoning"],
+        "png written": png_bytes > 5000 or not plot,
+        "launches": cli["kernel_launches"] > 0
+        and cli["kernel_launches"] == launches["fused_pcg_chunk"],
+    }
+    log("live " + json.dumps(out))
+    failed_checks("live", checks)
+    return out
+
+
+# --- phase 22: the 100k row ------------------------------------------------
+
+
+def phase_band100k(device):
+    """The JAX package's band-100k-jacobi-cg128 row through ``schur_grid``
+    and B2 (coarse level nc=784), held to ``BAND100K_REF``; then B2 at that
+    layout: timed on the row's own iteration-0 operands against its plain
+    version and its bound, with its per-phase split, and held against its
+    plain version on a seeded system of the same shapes."""
+    import numpy as np
+    import torch
+
+    from toyslam_torch.config import NoiseConfig, OptimizerConfig
+    from toyslam_torch.ops import fused_pcg as fp
+    from toyslam_torch.ops import grid_schur
+    from toyslam_torch.optimizer import GaussNewton
+    from toyslam_torch.sim import frontend, synthetic
+
+    import dataclasses
+
+    cfg = OptimizerConfig(**BAND100K_CFG)
+    gn = GaussNewton(cfg)
+    t0 = time.perf_counter()
+    graph, poses_gt, _ = synthetic.make_large_problem(
+        noise=NoiseConfig(**BAND100K_NOISE), **BAND100K_GRAPH)
+    t1 = time.perf_counter()
+    graph = gn._prepare(graph)          # the grid plan and the band search
+    t2 = time.perf_counter()
+    gdev = graph.to(device)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    band, n_pad = gdev.plan.band, gdev.num_poses
+    nc = n_pad // cfg.pcg_coarse_group
+    m = {
+        "poses_padded": n_pad, "landmarks_padded": gdev.num_landmarks,
+        "lm_edges": int(graph.lm_edges.mask.sum()),
+        "layout": {"chunk_b": band.chunk_b, "k_windows": band.k_windows,
+                   "w_row": band.w_row, "n_chunks": band.n_chunks,
+                   "n_wide": band.n_wide, "tile_bytes": band.tile_bytes,
+                   "cover_cap": int(band.cover.shape[-1])},
+        "nc": nc,
+        "gate_takes_band": grid_schur._band_mode(cfg, gdev.plan, n_pad),
+        "band_device_bytes": fp.band_device_bytes(
+            3, n_pad, band, 2 * band.n_wide, 0, nc),
+        "band_budget_bytes": fp.BAND_BUDGET_BYTES,
+        "host_graph_build_s": t1 - t0, "host_grid_plan_s": t2 - t1,
+        "to_device_s": t3 - t2,
+    }
+    log("band100k_setup " + json.dumps(m))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t4 = time.perf_counter()
+    res = gn.optimize(gdev)
+    est = res.graph.poses.cpu().numpy()
+    m["first_optimize_s"] = time.perf_counter() - t4
+    launches = read_counts()
+    it = res.iterations_run
+    errors = res.errors.cpu().numpy()[:it]
+    n = poses_gt.shape[0]
+    m.update({
+        "iterations_run": it, "chi2": errors.tolist(),
+        "pcg_iters": res.pcg_iters[:it].tolist(),
+        "ate_rmse": frontend.ate_rmse(est[:n], poses_gt),
+        "ate_dead_reckoning": frontend.ate_rmse(graph.poses[:n].numpy(),
+                                                poses_gt),
+        "kernel_launches": launches,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    })
+    ref = BAND100K_REF
+    checks = {
+        "gate": m["gate_takes_band"],
+        "launches": launches["band_fused_pcg_chunk"] > 0
+        and launches["fused_pcg_chunk"] == 0,
+        "finite": bool(np.isfinite(est).all() and np.isfinite(errors).all()),
+        "iterations": it == cfg.iterations,
+        "pcg iterations": m["pcg_iters"] == [ref["pcg_iters"]] * it,
+        "chi2_first": math.isclose(errors[0], ref["chi2_first"],
+                                   rel_tol=1e-4),
+        "chi2_final": math.isclose(errors[-1], ref["chi2_final"],
+                                   rel_tol=ref["final_rtol"]),
+        "ate below dead reckoning":
+            m["ate_rmse"] < m["ate_dead_reckoning"],
+    }
+    m["rate"] = gn_rate(gn, gdev, 2)
+    # the same row through the plain grid loop (the JAX script's
+    # grid-100k-jacobi-cg128 row, recorded with the same chi^2), and what
+    # the cost model of pcg_backend="auto" would take
+    m["auto_takes_band"] = grid_schur._band_mode(
+        dataclasses.replace(cfg, pcg_backend="auto"), gdev.plan, n_pad)
+    gn_plain = GaussNewton(dataclasses.replace(cfg, pcg_backend="xla"))
+    reset_counts()
+    res_p = gn_plain.optimize(gdev)
+    errors_p = res_p.errors.cpu().numpy()[: res_p.iterations_run]
+    plain_launches = read_counts()
+    m["plain_loop"] = {
+        "chi2": errors_p.tolist(),
+        "pcg_iters": res_p.pcg_iters[: res_p.iterations_run].tolist(),
+        "ate_rmse": frontend.ate_rmse(
+            res_p.graph.poses[:n].cpu().numpy(), poses_gt),
+        "kernel_launches": plain_launches,
+        "rate": gn_rate(gn_plain, gdev, 1),
+    }
+    checks.update({
+        "plain loop: no launch": sum(plain_launches.values()) == 0,
+        "plain loop: chi2_first": math.isclose(
+            errors_p[0], ref["chi2_first"], rel_tol=1e-4),
+        "plain loop: chi2_final": math.isclose(
+            errors_p[-1], ref["chi2_final"], rel_tol=ref["final_rtol"]),
+    })
+    del res_p
+    m["checks"] = checks
+    log("band100k_path " + json.dumps(m))
+    failed_checks("100k row", checks)
+
+    # B2 at this layout, on the row's own iteration-0 operands
+    chunk = cfg.pcg_fused_chunk
+    ops = grid_operands(gdev, cfg)
+    op, pre, rhs2 = ops["op"], ops["pre"], ops["rhs2"]
+    shapes = {"tiles": list(op.tiles.shape),
+              "u": None if op.u is None else list(op.u.shape),
+              "pcr_levels": pre.alphas.shape[0], "nc": pre.cinv.shape[-1],
+              "rmat": list(pre.rmat.shape), "cinv": list(pre.cinv.shape)}
+    times = chunk_times(op, pre, rhs2, chunk, kernel="band_fused_pcg_chunk",
+                        reps=5)
+    bound = chunk_bound(op, pre, rhs2, chunk)
+    split = band_phase_split(op, pre, rhs2, chunk,
+                             statistics.mean(times["kernel"]))
+    log("band100k_phase_split " + json.dumps(split))
+    log("band100k_kernel " + json.dumps({"shapes": shapes, "chunk_ms": times,
+                                         "bound": bound}))
+    win_off = band.win_off.cpu().numpy()
+    w_row, b_dl, n_wide = band.w_row, band.chunk_b * 2, band.n_wide
+    del ops, op, pre, rhs2, gdev, res, graph
+    torch.cuda.empty_cache()
+    sop, spre, srhs = synthetic_band_system(
+        n_pad, win_off, w_row, b_dl, 2 * n_wide, 0, cfg.pcg_coarse_group,
+        2e-2, seed=7, device=device, galerkin=False)
+    assert (list(sop.tiles.shape), spre.cinv.shape[-1]) == \
+        (shapes["tiles"], shapes["nc"])
+    out = compare_chunks("grid100k_jacobi_coarse784", sop, spre, srhs,
+                         chunk=chunk, kernel="band_fused_pcg_chunk")
+    del sop, spre, srhs
+    torch.cuda.empty_cache()
+    for r in out:
+        log("band100k_kernel_check " + json.dumps(r))
+    bad = [r for r in out if not r["ok"]]
+    if bad:
+        raise AssertionError(
+            f"band kernel disagrees with plain version at 100k: {bad}")
+    return {"path": m, "max_abs": max(r["max_abs_err"] for r in out),
+            "chunk_ms": times, "bound": bound, "split": split}
+
+
+INCR100K_JAX = {"chi2_dead_reckoning": 5302700032.0,
+                "chi2_after_init": 10811690.0, "chi2_final": 233443.7}
+
+
+def incr100k_start(device):
+    """The default-noise 100k graph on the card and the state that
+    ``incremental_init(window=4096, iters_per_prefix=5)`` leaves
+    (scripts/bench_plateau.py::run_100k_incr), laid out once for the
+    ``schur_grid`` optimize that follows."""
+    import dataclasses
+
+    import torch
+
+    from toyslam_torch.config import OptimizerConfig
+    from toyslam_torch.ops import assemble
+    from toyslam_torch.optimizer import GaussNewton
+    from toyslam_torch.optimizer.coarse_init import incremental_init
+    from toyslam_torch.sim import frontend, synthetic
+
+    base = OptimizerConfig(
+        iterations=80, lr=1.0, solver="schur_grid",
+        exact_odom_jacobians=True, pcg_tol=1e-3, pcg_max_iters=60,
+        pcg_restart_every=30, pcg_precond="tridiag+coarse",
+        pcg_coarse_group=64, pcg_precond_refresh=5, convergence_eps=1e-4,
+    )
+    graph, poses_gt, _ = synthetic.make_large_problem(**BAND100K_GRAPH)
+    n = poses_gt.shape[0]
+    gdev = graph.to(device)
+
+    def chi2(g):
+        return float(assemble.total_error(
+            g, huber_delta=base.huber_delta, exact_odom_jacobians=True))
+
+    def ate(g):
+        return frontend.ate_rmse(g.poses[:n].cpu().numpy(), poses_gt)
+
+    m = {"chi2_dead_reckoning": chi2(gdev), "ate_dead_reckoning": ate(gdev),
+         "jax_recorded": INCR100K_JAX}
+    reset_counts()
+    t0 = time.perf_counter()
+    g_init = incremental_init(
+        gdev, window=4096, iters_per_prefix=5,
+        solver_cfg=dataclasses.replace(
+            base, pcg_max_iters=30, pcg_restart_every=30,
+            pcg_precond_refresh=0))
+    torch.cuda.synchronize()
+    m["init_s"] = time.perf_counter() - t0
+    m["init_gn_iterations"] = 5 * -(-n // 4096)
+    m["init_launches"] = read_counts()
+    m["chi2_after_init"], m["ate_after_init"] = chi2(g_init), ate(g_init)
+    del gdev
+    return base, GaussNewton(base)._prepare(g_init), chi2, ate, m
+
+
+def incr100k_optimize(cfg, gprep, chi2, ate):
+    """One optimize from the initialised state; its record."""
+    from toyslam_torch.optimizer import GaussNewton
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = GaussNewton(cfg).optimize(gprep)
+    final = chi2(res.graph)
+    seconds = time.perf_counter() - t0
+    it = res.iterations_run
+    errors = res.errors.cpu().numpy()[:it]
+    return {
+        "optimize_s": seconds, "iterations_run": it,
+        "diverged": bool(res.diverged), "chi2": errors.tolist(),
+        "chi2_rises": int((errors[1:] > errors[:-1]).sum()),
+        "pcg_iters_total": int(res.pcg_iters[:it].sum()),
+        "chi2_final": final, "ate_rmse": ate(res.graph),
+        "kernel_launches": read_counts()}
+
+
+class ChunkTrace:
+    """Stands in for ``fused_pcg.band_fused_pcg_chunk`` during an optimize:
+    every launch also runs the plain version from the same state, and the
+    differences are kept per launch (scaled as in :func:`compare_chunks`);
+    the solve goes on with the kernel's result."""
+
+    def __init__(self, kernel_fn, ref_fn):
+        self.kernel_fn, self.ref_fn = kernel_fn, ref_fn
+        self.rows = []
+
+    @property
+    def launches(self):
+        return self.kernel_fn.launches
+
+    @launches.setter
+    def launches(self, v):
+        self.kernel_fn.launches = v
+
+    def __call__(self, op, pre, rhs, st, atol2, maxit, restart, chunk):
+        ker = self.kernel_fn(op, pre, rhs, st, atol2, maxit, restart, chunk)
+        ref = self.ref_fn(op, pre, rhs, st, atol2, maxit, restart, chunk)
+        rhs_max = float(rhs.abs().max())
+        self.rows.append({
+            "it_in": int(st.it), "restart": bool(restart),
+            "it": [int(ker.it), int(ref.it)],
+            "stop": [int(ker.stop), int(ref.stop)],
+            "x": float((ker.x - ref.x).abs().max() / ref.x.abs().max()),
+            "r_true": float((ker.rt - ref.rt).abs().max()) / rhs_max,
+            "rr": abs(float(ker.rr) - float(ref.rr))
+            / float((rhs * rhs).sum()),
+            "rr_over_rhs2": float(ref.rr) / float((rhs * rhs).sum()),
+        })
+        return ker
+
+
+def phase_incr100k_diag(device):
+    """Development (``--only incr100k_diag``): where the band kernel's
+    optimize and the plain grid loop's part on the initialised 100k
+    default-noise graph.  From one initialised state: the kernel held
+    against its plain version on a seeded system of this layout (17 PCR
+    levels, nc=1568) and at every launch of an 80-iteration optimize on
+    the row's own operands; then the same optimize with the kernel's plain
+    version in its place, with a chunk of 15 (a direction restart every
+    30 iterations, as the plain loop's, where 16 restarts every 16), and
+    through the plain grid loop."""
+    import dataclasses
+
+    import torch
+
+    from toyslam_torch.ops import fused_pcg as fp
+
+    base, gprep, chi2, ate, m = incr100k_start(device)
+    plain_cfg = dataclasses.replace(base, pcg_backend="xla")
+    base = dataclasses.replace(base, pcg_backend="fused")
+    log("incr100k_diag_init " + json.dumps(m))
+    band, n_pad = gprep.plan.band, gprep.num_poses
+    nl = max(1, (n_pad - 1).bit_length())
+    sop, spre, srhs = synthetic_band_system(
+        n_pad, band.win_off.cpu().numpy(), band.w_row, band.chunk_b * 2,
+        2 * band.n_wide, nl, base.pcg_coarse_group, 2e-2, seed=8,
+        device=device, galerkin=False)
+    out = compare_chunks(f"grid100k_L{nl}_coarse{spre.cinv.shape[-1]}",
+                         sop, spre, srhs, chunk=base.pcg_fused_chunk,
+                         kernel="band_fused_pcg_chunk")
+    del sop, spre, srhs
+    torch.cuda.empty_cache()
+    for r in out:
+        log("incr100k_diag_kernel_check " + json.dumps(r))
+
+    runs = {}
+    kernel_fn, ref_fn = fp.band_fused_pcg_chunk, fp.band_fused_pcg_chunk_ref
+    trace = ChunkTrace(kernel_fn, ref_fn)
+
+    def plain_chunk(*args):
+        plain_chunk.launches += 1     # shown under the kernel's key
+        return ref_fn(*args)
+
+    plain_chunk.launches = 0
+    try:
+        fp.band_fused_pcg_chunk = trace
+        runs["kernel_chunk16_traced"] = incr100k_optimize(
+            base, gprep, chi2, ate)
+        fp.band_fused_pcg_chunk = plain_chunk
+        runs["plain_chunk16"] = incr100k_optimize(base, gprep, chi2, ate)
+        runs["plain_chunk15"] = incr100k_optimize(
+            dataclasses.replace(base, pcg_fused_chunk=15), gprep, chi2, ate)
+    finally:
+        fp.band_fused_pcg_chunk = kernel_fn
+    runs["kernel_chunk15"] = incr100k_optimize(
+        dataclasses.replace(base, pcg_fused_chunk=15), gprep, chi2, ate)
+    runs["kernel_chunk16"] = incr100k_optimize(base, gprep, chi2, ate)
+    runs["plain_loop"] = incr100k_optimize(plain_cfg, gprep, chi2, ate)
+    rows = trace.rows
+    worst = {k: max(r[k] for r in rows) for k in ("x", "r_true", "rr")}
+    # per GN iteration (a solve starts where it_in is 0): the worst x
+    per_gn = []
+    for r in rows:
+        if r["it_in"] == 0:
+            per_gn.append(0.0)
+        per_gn[-1] = max(per_gn[-1], r["x"])
+    log("incr100k_diag_trace " + json.dumps({
+        "launches": len(rows), "worst": worst,
+        "it_or_stop_differ": sum(r["it"][0] != r["it"][1]
+                                 or r["stop"][0] != r["stop"][1]
+                                 for r in rows),
+        "stops": sum(r["stop"][0] for r in rows),
+        "worst_x_per_gn_iteration": per_gn,
+        "first_launches": rows[:12]}))
+    for name, r in runs.items():
+        log("incr100k_diag_run " + json.dumps({name: r}))
+    bad = [r for r in out if not r["ok"]]
+    if bad:
+        raise AssertionError(
+            f"band kernel disagrees with plain version at the incr100k "
+            f"layout: {bad}")
+    return runs
+
+
+def phase_incr100k(device):
+    """The JAX package's plateau-100k-revisit-incr-init row
+    (scripts/bench_plateau.py::run_100k_incr): the default-noise 100k
+    graph, whose dead-reckoned start lies outside the Gauss-Newton basin,
+    put inside it by ``incremental_init(window=4096, iters_per_prefix=5)``
+    and then optimized once with 80 ``schur_grid`` iterations, all under
+    ``pcg_backend="auto"``, which at this stack takes the plain grid loop.
+    Truncated PCG makes such runs chaotic, so the JAX package's recorded
+    values (``INCR100K_JAX``) are printed beside the run, which is held to:
+    the initialisation puts chi^2 below 1 % of the dead-reckoned one and
+    the optimize ends below 1.5 times the JAX package's final chi^2.
+
+    Then B2 on this path (``pcg_backend="fused"``, ``tridiag+coarse``: 17
+    PCR levels, nc=1568), with a chunk of 15 so that the direction
+    restarts every 30 iterations as the plain loop's does: 40 iterations
+    from the same state, held to 1.5 times the plain loop's chi^2 at that
+    iteration; one launch timed on the state's own operands against its
+    plain version and its bound; and the kernel held against its plain
+    version on a seeded system of this layout and these shapes."""
+    import dataclasses
+
+    import torch
+
+    base, gprep, chi2, ate, m = incr100k_start(device)
+    m.update(incr100k_optimize(base, gprep, chi2, ate))
+    checks = {
+        "init inside the basin":
+            m["chi2_after_init"] < 1e-2 * m["chi2_dead_reckoning"],
+        "auto takes the plain loop":
+            sum(m["init_launches"].values()) == 0
+            and sum(m["kernel_launches"].values()) == 0,
+        "final chi2 within 1.5x of the JAX package's":
+            m["chi2_final"] < 1.5 * INCR100K_JAX["chi2_final"],
+    }
+    fused = dataclasses.replace(base, pcg_backend="fused", pcg_fused_chunk=15,
+                                iterations=40)
+    b2 = incr100k_optimize(fused, gprep, chi2, ate)
+    plain_at = m["chi2"][b2["iterations_run"] - 1]
+    checks.update({
+        "B2 launched": b2["kernel_launches"]["band_fused_pcg_chunk"] > 0
+        and b2["kernel_launches"]["fused_pcg_chunk"] == 0,
+        "B2 within 1.5x of the plain loop at its last iteration":
+            b2["iterations_run"] == 40
+            and b2["chi2"][-1] < 1.5 * plain_at,
+    })
+    m["b2"] = dict(b2, plain_loop_chi2_at_last_iteration=plain_at)
+    m["checks"] = checks
+    log("incr100k " + json.dumps(m))
+    failed_checks("100k incremental initialisation", checks)
+
+    chunk = fused.pcg_fused_chunk
+    ops = grid_operands(gprep, fused)
+    op, pre, rhs2 = ops["op"], ops["pre"], ops["rhs2"]
+    shapes = {"tiles": list(op.tiles.shape),
+              "pcr_levels": pre.alphas.shape[0], "nc": pre.cinv.shape[-1]}
+    times = chunk_times(op, pre, rhs2, chunk, kernel="band_fused_pcg_chunk",
+                        reps=3)
+    bound = chunk_bound(op, pre, rhs2, chunk)
+    log("incr100k_kernel " + json.dumps({"shapes": shapes, "chunk_ms": times,
+                                         "bound": bound}))
+    band, n_pad = gprep.plan.band, gprep.num_poses
+    win_off = band.win_off.cpu().numpy()
+    del ops, op, pre, rhs2, gprep
+    torch.cuda.empty_cache()
+    sop, spre, srhs = synthetic_band_system(
+        n_pad, win_off, band.w_row, band.chunk_b * 2, 2 * band.n_wide,
+        shapes["pcr_levels"], base.pcg_coarse_group, 2e-2, seed=8,
+        device=device, galerkin=False)
+    assert (list(sop.tiles.shape), spre.cinv.shape[-1]) == \
+        (shapes["tiles"], shapes["nc"])
+    out = compare_chunks(
+        f"grid100k_L{shapes['pcr_levels']}_coarse{shapes['nc']}", sop, spre,
+        srhs, chunk=chunk, kernel="band_fused_pcg_chunk")
+    del sop, spre, srhs
+    torch.cuda.empty_cache()
+    for r in out:
+        log("incr100k_kernel_check " + json.dumps(r))
+    bad = [r for r in out if not r["ok"]]
+    if bad:
+        raise AssertionError(
+            f"band kernel disagrees with plain version at the incr100k "
+            f"layout: {bad}")
+    return {"path": m, "max_abs": max(r["max_abs_err"] for r in out),
+            "chunk_ms": times, "bound": bound}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--only", metavar="PHASES", default=None,
+        help="comma-separated phase names to run alone (development; "
+             "prints no result line)")
+    only = parser.parse_args(argv).only
     if not (ROOT / "toyslam_torch" / "csrc" / "fused_pcg_chunk.cu").exists():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(toyslam_torch/ not found beside it)", file=sys.stderr)
@@ -1782,7 +2620,22 @@ def main() -> int:
             grid_kernel=phase_grid_kernel(state["ggraphs"]))),
         ("grid_gate_fit", lambda: state.update(
             grid_fit=phase_grid_gate_fit(state["ggraphs"], device))),
+        ("serve", lambda: state.update(serve=phase_serve(device))),
+        ("snapshot", lambda: state.update(snapshot=phase_snapshot(device))),
+        ("live", lambda: state.update(live=phase_live(device))),
+        ("band100k", lambda: state.update(
+            band100k=phase_band100k(device))),
+        ("incr100k", lambda: state.update(
+            incr100k=phase_incr100k(device))),
     ]
+    extra = {"incr100k_diag": lambda: phase_incr100k_diag(device)}
+    if only is not None:
+        wanted = only.split(",")
+        phases = [(name, fn) for name, fn in phases + list(extra.items())
+                  if name in wanted]
+        unknown = sorted(set(wanted) - {name for name, _ in phases})
+        if unknown:
+            parser.error(f"unknown phases: {unknown}")
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -1797,6 +2650,9 @@ def main() -> int:
     if failures:
         print(f"chip_smoke.py: failed phases: {failures}", file=sys.stderr)
         return 1
+    if only is not None:
+        log(f"partial run ({only}): every phase passed; no result line")
+        return 0
 
     # library_ms: no single PyTorch call computes a PCG chunk
     b1 = dict(KERNELS["fused_pcg_chunk"])
@@ -1859,6 +2715,49 @@ def main() -> int:
         plain_ms=statistics.mean(gk["chunk_ms"]["plain"]),
         bound_ms=gk["bound"]["bound_ms"], bound_by=gk["bound"]["bound_by"],
         library_ms=None)
+    # B2 at 100k (schur_grid, nc=784) and B1 on the serving path: the
+    # launches of the 100k row's first optimize, and of every request the
+    # two servers answered over their client connections
+    bk100 = state["band100k"]
+    b2["grid100k"] = dict(
+        launches=bk100["path"]["kernel_launches"]["band_fused_pcg_chunk"],
+        max_abs_err=bk100["max_abs"],
+        ms=statistics.mean(bk100["chunk_ms"]["kernel"]),
+        plain_ms=statistics.mean(bk100["chunk_ms"]["plain"]),
+        bound_ms=bk100["bound"]["bound_ms"],
+        bound_by=bk100["bound"]["bound_by"], library_ms=None)
+    # B2 on the 100k default-noise graph after incremental_init (17 PCR
+    # levels, nc=1568): the launches of that path's 40-iteration optimize
+    bi = state["incr100k"]
+    b2["grid100k_incr"] = dict(
+        launches=bi["path"]["b2"]["kernel_launches"]["band_fused_pcg_chunk"],
+        max_abs_err=bi["max_abs"],
+        ms=statistics.mean(bi["chunk_ms"]["kernel"]),
+        plain_ms=statistics.mean(bi["chunk_ms"]["plain"]),
+        bound_ms=bi["bound"]["bound_ms"],
+        bound_by=bi["bound"]["bound_by"], library_ms=None)
+    serve_b1 = {f"{kind}/{i}:{r['poses']}": r["kernel_launches"][
+        "fused_pcg_chunk"]
+        for kind in ("python", "native")
+        for i, r in enumerate(state["serve"][kind]["requests"])}
+    # timed and bound on the decoded requests' own operands; held against
+    # the plain version in phase 2 at both requests' shapes (asserted)
+    sk = state["serve"]["chunk"]
+    assert [sk[n]["shapes"] for n in (150, 2000)] == [
+        {"np": 192, "mw": 768, "pcr_levels": 8},
+        {"np": 2048, "mw": 768, "pcr_levels": 11}], sk
+
+    def serve_times(n):
+        return dict(
+            ms=statistics.mean(sk[n]["chunk_ms"]["kernel"]),
+            plain_ms=statistics.mean(sk[n]["chunk_ms"]["plain"]),
+            bound_ms=sk[n]["bound"]["bound_ms"],
+            bound_by=sk[n]["bound"]["bound_by"])
+
+    b1["serve"] = dict(
+        launches=sum(serve_b1.values()), launches_by_path=serve_b1,
+        max_abs_err=state["max_abs"], **serve_times(150),
+        poses2000=serve_times(2000), library_ms=None)
     log(json.dumps({"kernels": [b1, b2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -70,12 +70,16 @@ def test_port_imports_no_jax():
         "assert all('toyslam_torch.ops.' + m in sys.modules for m in ba)\n"
         "assert 'toyslam_torch.models.graph3d' in sys.modules\n"
         "assert 'toyslam_torch.sim.synthetic3d' in sys.modules\n"
+        "new = ['io.codec', 'io.snapshot', 'io.client', 'io.server', "
+        "'io.native', 'optimizer.coarse_init', 'sim.live', 'view', "
+        "'view.view2d']\n"
+        "assert all('toyslam_torch.' + m in sys.modules for m in new)\n"
         "print(len([k for k in sys.modules if k.startswith('toyslam_torch')]))\n"
         "sys.exit(1 if bad else 0)\n"
     )
     proc = _python("-c", code)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 21   # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 40   # every module was imported
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):

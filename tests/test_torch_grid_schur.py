@@ -258,8 +258,9 @@ def test_band_mode_static_refusals(g2100, monkeypatch):
 def test_band_cost_model_decisions():
     """The model re-fitted on the H100, on stub layouts: the band kernel
     wins at the bench rows' stacks (it measured ten times cheaper there),
-    and the plain grid loop only once a stack's stream outlasts a
-    launch-bound loop iteration (past ~4.4 GB)."""
+    and the plain grid loop on every stack beyond the fitted range (at the
+    100k row's 3.05 GB the kernel measured 2.8 times the fitted line and
+    lost to the loop)."""
 
     def stub(stack_bytes):
         band = type("Band", (), {"tile_bytes": stack_bytes})()
@@ -267,7 +268,8 @@ def test_band_cost_model_decisions():
 
     cfg = TOpt(**BENCH)
     for stack, wins in [(245_366_784, True), (179_306_496, True),
-                        (48_758_784, True), (2 << 30, True),
+                        (48_758_784, True), (250_000_001, False),
+                        (2 << 30, False), (3_051_356_160, False),
                         (5 << 30, False), (8 << 30, False)]:
         assert t_gs._band_cost_wins(cfg, stub(stack), 10240) == wins, stack
     t_band, t_grid = t_gs._cost_model(cfg, stub(245_366_784))

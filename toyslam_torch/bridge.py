@@ -16,16 +16,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from toyslam_torch.models.graph import FactorGraph2D, graph_from_numpy
+from toyslam_torch.models.graph import (
+    FactorGraph2D,
+    graph_from_numpy,
+    to_numpy as _np,
+)
 from toyslam_torch.models.graph3d import FactorGraph3D, graph3d_from_numpy
 from toyslam_torch.ops import gather_plan as gp
 from toyslam_torch.ops.band_plan import BandAux, band_aux_from_arrays
-
-
-def _np(a) -> np.ndarray:
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
 
 
 def _table(t, device) -> gp.VertexTable:

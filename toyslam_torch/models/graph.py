@@ -18,6 +18,13 @@ import numpy as np
 import torch
 
 
+def to_numpy(a) -> np.ndarray:
+    """A host array from an array or a tensor on any device."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def _bucket(n: int, bucket: int) -> int:
     """Round ``n`` up to the next multiple of ``bucket`` (at least one)."""
     return max(bucket, -(-n // bucket) * bucket)
@@ -169,6 +176,9 @@ class GraphBuilder2D:
         self._lm_fixed.append(bool(fixed))
         return idx
 
+    def landmark_index(self, external_id: int) -> int:
+        return self._lm_index[external_id]
+
     @property
     def landmark_id_map(self) -> dict[int, int]:
         return dict(self._lm_index)
@@ -183,6 +193,24 @@ class GraphBuilder2D:
         lm = self._lm_index[external_lm_id]
         self._lm_obs.append((pose, lm, np.asarray(meas_rb, np.float32),
                              np.asarray(info2, np.float32)))
+
+    def set_state(self, poses, landmarks) -> None:
+        """Overwrite the builder's pose and landmark estimates with
+        optimized values.  ``poses [num_poses, 3]`` and ``landmarks
+        [num_landmarks, 2]`` (arrays or tensors on any device) must cover
+        exactly the real (unpadded) vertices."""
+        poses = to_numpy(poses).astype(np.float32, copy=False)
+        landmarks = to_numpy(landmarks).astype(np.float32, copy=False)
+        if poses.shape != (self.num_poses, 3):
+            raise ValueError(
+                f"poses {poses.shape} != ({self.num_poses}, 3)"
+            )
+        if landmarks.shape != (self.num_landmarks, 2):
+            raise ValueError(
+                f"landmarks {landmarks.shape} != ({self.num_landmarks}, 2)"
+            )
+        self._poses = list(poses)
+        self._landmarks = list(landmarks)
 
     @property
     def num_poses(self) -> int:

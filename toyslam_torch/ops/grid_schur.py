@@ -297,10 +297,19 @@ def _matvec_factory(d: _GridSystem, hll_inv: torch.Tensor, gp: GridPlan,
 # per iteration at 4096 and 10240 poses alike (launch-bound: ~150 small
 # kernels per iteration).  The TPU model's per-window and per-row terms
 # fitted to nothing measurable here and are gone.
+#
+# The line does not hold far beyond the fitted stacks.  On the same card,
+# at the 100k-pose layout (a 3.05 GB stack, 4-column slabs) a B2 trip took
+# 7.1-7.4 ms where the line gives 2.6, the plain grid loop 1.7-2.9 ms per
+# iteration, and the loop ran 2.9-4.7 times as many GN iterations per second
+# (the band100k lines of chip_smoke.py, PERF.md).  Where B2 falls
+# behind between 245 MB and 3.05 GB is not measured, so "auto" declines
+# every stack larger than the largest fitted one.
 _BAND_GN_S = 0.9e-3
 _BAND_TRIP_S = 7.8e-5
 _BAND_STREAM_BW = 1.19e12
 _GRID_ITER_S = 3.8e-3
+_BAND_FIT_MAX_BYTES = 250_000_000
 
 
 def _cost_model(cfg, gp: GridPlan) -> tuple[float, float]:
@@ -314,8 +323,10 @@ def _cost_model(cfg, gp: GridPlan) -> tuple[float, float]:
 
 def _band_cost_wins(cfg, gp: GridPlan, n: int) -> bool:
     """Whether the band kernel is modeled cheaper than the plain grid loop
-    (:func:`_cost_model`).  Used for ``pcg_backend="auto"`` only; "fused"
-    forces the band."""
+    (:func:`_cost_model`) on a stack within the model's fitted range.  Used
+    for ``pcg_backend="auto"`` only; "fused" forces the band."""
+    if gp.band.tile_bytes > _BAND_FIT_MAX_BYTES:
+        return False
     t_band, t_grid = _cost_model(cfg, gp)
     return t_band < t_grid
 
