@@ -74,6 +74,9 @@ def test_port_imports_no_jax():
         "'io.native', 'optimizer.coarse_init', 'sim.live', 'view', "
         "'view.view2d']\n"
         "assert all('toyslam_torch.' + m in sys.modules for m in new)\n"
+        "par = ['parallel', 'parallel.partition', 'parallel.launch', "
+        "'parallel.mesh', 'parallel.distributed', 'ops.collective']\n"
+        "assert all('toyslam_torch.' + m in sys.modules for m in par)\n"
         "print(len([k for k in sys.modules if k.startswith('toyslam_torch')]))\n"
         "sys.exit(1 if bad else 0)\n"
     )

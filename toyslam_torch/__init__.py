@@ -9,7 +9,8 @@ with the fused PCG kernel (``ops.fused_pcg``, ``csrc/fused_pcg_chunk.cu``).
 The scale path: large synthetic graphs (``sim.synthetic``), whose landmark
 fill is laid out as a banded tile stack (``ops.band_plan``) and streamed
 by the band kernel (``csrc/band_fused_pcg_chunk.cu``).  On CPU tensors each
-kernel's plain PyTorch version runs instead.
+kernel's plain PyTorch version runs instead.  ``parallel`` runs the solves
+sharded over processes on ``torch.distributed`` (edges, or state blocks).
 
 This package imports neither JAX nor ``toyslam_tpu``.
 """

@@ -6,7 +6,10 @@ layout).  :func:`graph_from_arrays` reads any object with the
 ``FactorGraph2D`` attribute protocol, and :func:`graph3d_from_arrays` any
 with the ``FactorGraph3D`` one (numpy arrays, device arrays of another
 framework, or this package's own tensors), through ``np.asarray``, and
-return this package's graph.
+return this package's graph.  :func:`partition_from_arrays` carries a
+partitioned graph and its ``PartitionMeta`` (``build_partition``'s output)
+across the same way, so that the port's partitioned solve can run on tables
+that the JAX package built.
 """
 
 from __future__ import annotations
@@ -21,7 +24,13 @@ from toyslam_torch.models.graph import (
     graph_from_numpy,
     to_numpy as _np,
 )
-from toyslam_torch.models.graph3d import FactorGraph3D, graph3d_from_numpy
+from toyslam_torch.models.graph import LandmarkEdges, OdomEdges
+from toyslam_torch.models.graph3d import (
+    FactorGraph3D,
+    Odom3DEdges,
+    ReprojEdges,
+    graph3d_from_numpy,
+)
 from toyslam_torch.ops import gather_plan as gp
 from toyslam_torch.ops.band_plan import BandAux, band_aux_from_arrays
 
@@ -97,3 +106,46 @@ def graph3d_from_arrays(g, device="cpu") -> FactorGraph3D:
     if plan is not None:
         graph = dataclasses.replace(graph, plan=plan_from_arrays(plan, device))
     return graph
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A tensor of ``a`` on ``device``: floats keep their width, integers
+    become int64."""
+    a = _np(a)
+    if np.issubdtype(a.dtype, np.integer):
+        a = a.astype(np.int64)
+    return torch.as_tensor(a, device=device)
+
+
+def partition_from_arrays(pgraph, meta, device="cpu"):
+    """This package's partitioned graph (stacked ``[D, E, ...]`` edges and a
+    ``parallel.partition.PartitionPlan``, 2D or SE(3)) and
+    ``PartitionMeta`` from any objects with the attribute protocol of
+    ``build_partition``'s output, float widths kept."""
+    from toyslam_torch.parallel.partition import PartitionMeta, PartitionPlan
+
+    pl = pgraph.plan
+    plan = PartitionPlan(**{
+        f.name: (int(getattr(pl, f.name)) if f.name in ("n_bp", "n_bl")
+                 else _tensor(getattr(pl, f.name), device))
+        for f in dataclasses.fields(PartitionPlan)})
+    is3d = hasattr(pgraph, "intrinsics")
+    odom_cls, lm_cls = ((Odom3DEdges, ReprojEdges) if is3d
+                        else (OdomEdges, LandmarkEdges))
+    o, l = pgraph.odom, pgraph.lm_edges
+    fields = {f: _tensor(getattr(pgraph, f), device) for f in (
+        "poses", "landmarks", "pose_mask", "lm_mask", "pose_fixed",
+        "lm_fixed")}
+    fields["odom"] = odom_cls(**{f: _tensor(getattr(o, f), device)
+                                 for f in ("i", "j", "meas", "info", "mask")})
+    fields["lm_edges"] = lm_cls(**{
+        f: _tensor(getattr(l, f), device)
+        for f in ("pose", "lm", "meas", "info", "mask")})
+    if is3d:
+        graph = FactorGraph3D(intrinsics=_tensor(pgraph.intrinsics, device),
+                              plan=plan, **fields)
+    else:
+        graph = FactorGraph2D(plan=plan, **fields)
+    return graph, PartitionMeta(**{
+        k: (np.asarray(v) if isinstance(v, np.ndarray) else v)
+        for k, v in meta._asdict().items()})

@@ -32,7 +32,8 @@ def _bucket(n: int, bucket: int) -> int:
 
 class TensorTree:
     """Mixin for frozen dataclasses of tensors: ``.to(device)`` moves every
-    tensor field, recursing into nested trees; other fields are kept."""
+    tensor field and ``.astype(dtype)`` casts every floating-point one,
+    recursing into nested trees; other fields are kept."""
 
     def to(self, device):
         changes = {}
@@ -40,6 +41,18 @@ class TensorTree:
             v = getattr(self, f.name)
             if isinstance(v, (torch.Tensor, TensorTree)):
                 changes[f.name] = v.to(device)
+        return dataclasses.replace(self, **changes)
+
+    def astype(self, dtype: torch.dtype):
+        """The tree with every floating-point tensor in ``dtype`` (float64
+        runs); index tensors and other fields are kept."""
+        changes = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, TensorTree):
+                changes[f.name] = v.astype(dtype)
+            elif isinstance(v, torch.Tensor) and v.is_floating_point():
+                changes[f.name] = v.to(dtype)
         return dataclasses.replace(self, **changes)
 
 

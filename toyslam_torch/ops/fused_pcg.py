@@ -588,7 +588,7 @@ def band_device_bytes(dp: int, np_: int, band, mw: int, nlevels: int,
     return 4 * words
 
 
-def fused_mode(cfg, graph) -> str | None:
+def fused_mode(cfg, graph, group=None) -> str | None:
     """The gate, from the config, the shapes and the budgets alone:
     "resident" when the resident kernel can run this graph, else "band"
     when the graph carries a band layout (``plan.band``) whose slabs fit a
@@ -599,9 +599,11 @@ def fused_mode(cfg, graph) -> str | None:
     ``pcg_backend="xla"``, ``pcg_unroll``, the "chunk" preconditioner,
     loop closures with exact odometry Jacobians or in an SE(3) graph, a
     coarse group that does not divide Np, and graphs past the resident
-    budget without a fitting band layout."""
+    budget without a fitting band layout, and under a process ``group``
+    (the sharded solves run the plain loop, as the JAX package's do under an
+    ``axis_name``)."""
     local_kind, _, coarse_kind = cfg.pcg_precond.partition("+")
-    if cfg.pcg_backend == "xla" or cfg.pcg_unroll:
+    if cfg.pcg_backend == "xla" or cfg.pcg_unroll or group is not None:
         return None
     if graph.plan is None or graph.plan.fused is None:
         raise ValueError(
@@ -654,10 +656,10 @@ def fused_supported(cfg, graph) -> bool:
     return fused_mode(cfg, graph) is not None
 
 
-def gated_mode(cfg, graph) -> str | None:
+def gated_mode(cfg, graph, group=None) -> str | None:
     """:func:`fused_mode`, with ``pcg_backend="fused"`` where the gate
     declines the kernels raising ``ValueError``, as in the JAX package."""
-    mode = fused_mode(cfg, graph)
+    mode = fused_mode(cfg, graph, group)
     if mode is None and cfg.pcg_backend == "fused":
         raise ValueError(
             "pcg_backend='fused' but the graph/config does not support the "

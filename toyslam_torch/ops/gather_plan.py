@@ -61,12 +61,16 @@ class GatherPlan(TensorTree):
 
 def _build_table(
     vertex_ids: np.ndarray, mask: np.ndarray, num_vertices: int,
-    device="cpu",
+    device="cpu", k_override: int | None = None,
 ) -> VertexTable:
     ids = vertex_ids[mask > 0]
     edge_idx = np.nonzero(mask > 0)[0]
     counts = np.bincount(ids, minlength=num_vertices)
     k = max(int(counts.max()) if counts.size else 0, 1)
+    if k_override is not None:
+        if k_override < k:
+            raise ValueError(f"k_override {k_override} < capacity {k}")
+        k = k_override
     tbl = np.zeros((num_vertices, k), np.int64)
     msk = np.zeros((num_vertices, k), np.float32)
     # edges sorted by vertex id keep their relative order; slot = rank
@@ -137,6 +141,53 @@ def attach_plan(
     """Graph with gather tables attached (host-side, once per structure)."""
     return dataclasses.replace(
         graph, plan=build_gather_plan(graph, want_band=want_band))
+
+
+def _build_sharded_table(
+    vertex_ids: np.ndarray, mask: np.ndarray, num_vertices: int, n_dev: int
+) -> VertexTable:
+    """Per-shard tables stacked on a leading rank axis ``[D, V, K]``: the
+    edges split into ``n_dev`` contiguous chunks, and shard ``d``'s table
+    lists the *local* indices of its chunk's edges per vertex.  ``K`` is
+    the largest incident count over all shards, so the stack is
+    rectangular.  Host-side, on CPU tensors."""
+    e = vertex_ids.shape[0]
+    if e % n_dev:
+        raise ValueError(f"{e} edges do not split into {n_dev} shards "
+                         "(pad_edges_for_mesh first)")
+    chunk = e // n_dev
+    shards = [slice(d * chunk, (d + 1) * chunk) for d in range(n_dev)]
+    k = 1
+    for sl in shards:
+        ids = vertex_ids[sl][mask[sl] > 0]
+        if ids.size:
+            k = max(k, int(np.bincount(ids, minlength=num_vertices).max()))
+    tables = [_build_table(vertex_ids[sl], mask[sl], num_vertices,
+                           k_override=k) for sl in shards]
+    return VertexTable(idx=torch.stack([t.idx for t in tables]),
+                       mask=torch.stack([t.mask for t in tables]))
+
+
+def build_sharded_plan(graph: FactorGraph2D, n_dev: int) -> GatherPlan:
+    """The gather plan of an edge-sharded graph (edge count a multiple of
+    ``n_dev``): every table carries a leading rank axis ``[D, V, K]``, and
+    rank ``d`` takes its own ``[V, K]`` tables with its chunk of the edges
+    (``parallel.mesh.shard_graph``).  No loop-closure aux and no band
+    layout: under a process group the gate declines the kernels."""
+    n, m = graph.num_poses, graph.num_landmarks
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    lm_mask, od_mask = host(graph.lm_edges.mask), host(graph.odom.mask)
+    return GatherPlan(
+        lm_by_pose=_build_sharded_table(host(graph.lm_edges.pose), lm_mask,
+                                        n, n_dev),
+        lm_by_lm=_build_sharded_table(host(graph.lm_edges.lm), lm_mask, m,
+                                      n_dev),
+        odom_by_i=_build_sharded_table(host(graph.odom.i), od_mask, n, n_dev),
+        odom_by_j=_build_sharded_table(host(graph.odom.j), od_mask, n, n_dev),
+    )
 
 
 def table_sum(values: torch.Tensor, table: VertexTable) -> torch.Tensor:

@@ -18,8 +18,13 @@ calls, stateful when the preconditioner is refreshed only every
 kernels of ``ops/fused_pcg.py`` where their gate (``fused_mode``) admits
 the graph and the plain loop elsewhere, as the JAX package does.
 
-Port of ``toyslam_tpu.ops.schur``; left out are the ``axis_name`` hooks of
-the sharded solve (ROADMAP.md A.12).
+Port of ``toyslam_tpu.ops.schur``.  Its ``axis_name`` hooks are the
+optional ``group`` arguments here: a ``torch.distributed`` process group
+over which the edge-sharded solve (``parallel/distributed.py``) sums its
+per-vertex partials and the partitioned one (``parallel/partition.py``) its
+PCG inner products, through ``ops/collective.py``; None is one process.
+Under a group the solve is stateless and never takes the kernels, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from toyslam_torch.config import OptimizerConfig
 from toyslam_torch.models.graph import FactorGraph2D
 from toyslam_torch.ops import blockmath as bm
 from toyslam_torch.ops import edge_blocks
+from toyslam_torch.ops.collective import all_reduce
 from toyslam_torch.ops import gather_plan as gp
 from toyslam_torch.ops import residuals as res_ops
 
@@ -68,9 +74,13 @@ def assemble_blocks(
     huber_delta: float,
     fixed_prior: float = 1e6,
     exact_odom_jacobians: bool = False,
+    group=None,
 ) -> BlockSystem:
     """Linearize every edge and sum the blocks per vertex through the
-    graph's gather tables."""
+    graph's gather tables.  Under ``group`` (edge arrays sharded, states
+    replicated) the per-vertex sums and chi^2 are summed across the ranks
+    in one collective, so every rank holds the complete diagonal blocks and
+    gradients; the per-edge blocks ``hpp_off`` and ``hpl`` stay local."""
     plan = _plan(graph)
     t_oi, t_oj = plan.odom_by_i, plan.odom_by_j
     t_lp, t_ll = plan.lm_by_pose, plan.lm_by_lm
@@ -111,6 +121,8 @@ def assemble_blocks(
     hll = gp.table_sum(lb.w_btb, t_ll)
     bp = bp + gp.table_sum(lb.bp_c, t_lp)
     bl = gp.table_sum(lb.bl_c, t_ll)
+    hpp_diag, hll, bp, bl, err = all_reduce(
+        group, hpp_diag, hll, bp, bl, odom_err + lb.robust_err.sum())
 
     # gauge priors + padding regularization
     eye3 = torch.eye(3, dtype=hpp_diag.dtype, device=hpp_diag.device)
@@ -121,8 +133,6 @@ def assemble_blocks(
     hll = hll + lm_reg[:, None, None] * eye2
     bp = bp * (1.0 - graph.pose_fixed)[:, None]
     bl = bl * (1.0 - graph.lm_fixed)[:, None]
-
-    err = odom_err + lb.robust_err.sum()
     return BlockSystem(
         hpp_diag=hpp_diag, hpp_off=hpp_off, hll=hll, hpl=lb.w_hpl,
         bp=bp, bl=bl, err=err,
@@ -190,53 +200,60 @@ def inv_blocks(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def hlp_matvec(
-    sys: BlockSystem, lm_pose: torch.Tensor, x: torch.Tensor, plan
+    sys: BlockSystem, lm_pose: torch.Tensor, x: torch.Tensor, plan,
+    group=None,
 ) -> torch.Tensor:
     """``Hlp @ x = Hpl^T @ x`` for ``x [N, dp]`` -> [M, dl] (block sizes
-    read off ``hpl``)."""
-    return gp.table_sum(bm.mtv(sys.hpl, x[lm_pose]), plan.lm_by_lm)
+    read off ``hpl``), summed across ``group``."""
+    return all_reduce(
+        group, gp.table_sum(bm.mtv(sys.hpl, x[lm_pose]), plan.lm_by_lm))[0]
 
 
 def hpl_matvec(
-    sys: BlockSystem, lm_lm: torch.Tensor, y: torch.Tensor, plan
+    sys: BlockSystem, lm_lm: torch.Tensor, y: torch.Tensor, plan,
+    group=None,
 ) -> torch.Tensor:
     """``Hpl @ y`` for ``y [M, dl]`` -> [N, dp] (block sizes read off
-    ``hpl``)."""
-    return gp.table_sum(bm.mv(sys.hpl, y[lm_lm]), plan.lm_by_pose)
+    ``hpl``), summed across ``group``."""
+    return all_reduce(
+        group, gp.table_sum(bm.mv(sys.hpl, y[lm_lm]), plan.lm_by_pose))[0]
 
 
 def hpp_matvec(
     sys: BlockSystem, odom_i: torch.Tensor, odom_j: torch.Tensor,
-    x: torch.Tensor, plan
+    x: torch.Tensor, plan, group=None,
 ) -> torch.Tensor:
     """``Hpp @ x`` for ``x [N, dp]`` from the blocks alone: the diagonal
     blocks plus the odometry off-diagonal products, summed per vertex
-    through the gather tables."""
+    through the gather tables (and across ``group``; the diagonal blocks
+    are complete on every rank)."""
     off = gp.table_sum(bm.mv(sys.hpp_off, x[odom_j]), plan.odom_by_i)
     off = off + gp.table_sum(bm.mtv(sys.hpp_off, x[odom_i]), plan.odom_by_j)
-    return bm.mv(sys.hpp_diag, x) + off
+    return bm.mv(sys.hpp_diag, x) + all_reduce(group, off)[0]
 
 
 def schur_matvec(
     sys: BlockSystem, hll_inv: torch.Tensor, graph: FactorGraph2D,
-    x: torch.Tensor,
+    x: torch.Tensor, group=None,
 ) -> torch.Tensor:
     """``S @ x`` without materializing S, in edge order (the oracle of the
     vertex-major :func:`plan_matvec`)."""
     plan = _plan(graph)
-    u = hlp_matvec(sys, graph.lm_edges.pose, x, plan)
-    w = hpl_matvec(sys, graph.lm_edges.lm, bm.mv(hll_inv, u), plan)
-    return hpp_matvec(sys, graph.odom.i, graph.odom.j, x, plan) - w
+    u = hlp_matvec(sys, graph.lm_edges.pose, x, plan, group)
+    w = hpl_matvec(sys, graph.lm_edges.lm, bm.mv(hll_inv, u), plan, group)
+    return hpp_matvec(sys, graph.odom.i, graph.odom.j, x, plan, group) - w
 
 
 def schur_s_diag(
-    sys: BlockSystem, hll_inv: torch.Tensor, graph: FactorGraph2D
+    sys: BlockSystem, hll_inv: torch.Tensor, graph: FactorGraph2D,
+    group=None,
 ) -> torch.Tensor:
     """Diagonal blocks of S: ``[N, d, d]`` (exact when each (pose, landmark)
     pair is observed by one edge, as in the per-frame frontend)."""
     contrib = bm.mm(bm.mm(sys.hpl, hll_inv[graph.lm_edges.lm]),
                     sys.hpl.transpose(-1, -2))
-    return sys.hpp_diag - gp.table_sum(contrib, _plan(graph).lm_by_pose)
+    return sys.hpp_diag - all_reduce(
+        group, gp.table_sum(contrib, _plan(graph).lm_by_pose))[0]
 
 
 class PlanOperator(NamedTuple):
@@ -277,21 +294,26 @@ def make_plan_operator(
     )
 
 
-def plan_matvec(op: PlanOperator, x: torch.Tensor) -> torch.Tensor:
-    """``S @ x`` on the vertex-major grids."""
-    u = bm.mtv(op.hpl_L, x[op.pose_L]).sum(1)
+def plan_matvec(op: PlanOperator, x: torch.Tensor,
+                group=None) -> torch.Tensor:
+    """``S @ x`` on the vertex-major grids.  Under ``group`` the grids hold
+    this rank's edge shard (per-shard tables, ``build_sharded_plan``): the
+    landmark intermediate ``u`` and the pose-space edge partials are summed
+    across the ranks, two collectives ([M, dl] and [N, dp]) per matvec."""
+    u = all_reduce(group, bm.mtv(op.hpl_L, x[op.pose_L]).sum(1))[0]
     v = bm.mv(op.hll_inv, u)
     w = bm.mv(op.hpl_P, v[op.lm_P]).sum(1)
     off = (bm.mv(op.off_I, x[op.j_I]).sum(1)
            + bm.mtv(op.off_J, x[op.i_J]).sum(1))
-    return bm.mv(op.hpp_diag, x) + (off - w)
+    return bm.mv(op.hpp_diag, x) + all_reduce(group, off - w)[0]
 
 
-def plan_s_diag(op: PlanOperator) -> torch.Tensor:
-    """Diagonal blocks of S from the pose-major grid."""
+def plan_s_diag(op: PlanOperator, group=None) -> torch.Tensor:
+    """Diagonal blocks of S from the pose-major grid (the edge terms summed
+    across ``group``)."""
     contrib = bm.mm(bm.mm(op.hpl_P, op.hll_inv[op.lm_P]),
                     op.hpl_P.transpose(-1, -2)).sum(1)
-    return op.hpp_diag - contrib
+    return op.hpp_diag - all_reduce(group, contrib)[0]
 
 
 def _shift_down(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -420,7 +442,8 @@ def tridiag_apply(pre: TridiagPrecond, r: torch.Tensor) -> torch.Tensor:
 
 
 def chain_upper(
-    sys: BlockSystem, odom_i: torch.Tensor, odom_j: torch.Tensor, n: int
+    sys: BlockSystem, odom_i: torch.Tensor, odom_j: torch.Tensor, n: int,
+    group=None,
 ) -> torch.Tensor:
     """Superdiagonal ``[n, dp, dp]`` of the pose-chain part of S: the
     odometry off-diagonal blocks of consecutive poses (loop closures j != i+1 are excluded).  The
@@ -429,7 +452,8 @@ def chain_upper(
     m = (odom_j == odom_i + 1).to(sys.hpp_off.dtype)
     up = torch.zeros((n,) + sys.hpp_off.shape[1:], dtype=sys.hpp_off.dtype,
                      device=sys.hpp_off.device)
-    return up.index_add_(0, odom_i, sys.hpp_off * m[:, None, None])
+    up.index_add_(0, odom_i, sys.hpp_off * m[:, None, None])
+    return all_reduce(group, up)[0]
 
 
 def build_chunk_precond(
@@ -578,38 +602,45 @@ def build_coarse_precond(
     d: BlockSystem,
     hll_inv: torch.Tensor,
     graph: FactorGraph2D,
-    group: int,
+    coarse_group: int,
+    group=None,
 ) -> torch.Tensor:
     """Galerkin coarse operator of the two-level preconditioner, returned as
     its dense explicit inverse ``[dp*nc, dp*nc]`` (component-major: row
     ``a*nc + c``).
 
-    Every ``group`` consecutive poses aggregate into one super-pose (0/1
+    Every ``coarse_group`` consecutive poses aggregate into one super-pose (0/1
     restriction R), and ``S_c = R^T S R`` is built from the block pieces:
     ``R^T Hpp R`` by sums over group pairs, and the fill
     ``R^T Hpl Hll^-1 Hlp R = V V^T`` with ``U = R^T Hpl`` (one sum over the
     edges) and ``V = U chol(Hll^-1)``: one ``[dp*nc, dl*M]`` product.  The
-    reference's ``segment_sum``s are ``index_add_`` here."""
+    reference's ``segment_sum``s are ``index_add_`` here.  Under ``group``
+    the sums over the edge shards are summed across the ranks in one
+    collective, so every rank holds the same coarse inverse."""
     n, m = graph.num_poses, graph.num_landmarks
     dp = d.hpp_diag.shape[-1]
     dl = d.hll.shape[-1]
     dev, dt = d.hpp_diag.device, d.hpp_diag.dtype
-    nc = -(-n // group)     # the last aggregate may hold fewer poses
+    nc = -(-n // coarse_group)     # the last aggregate may hold fewer poses
 
-    gid = torch.arange(n, device=dev) // group
-    gi = graph.odom.i // group
-    gj = graph.odom.j // group
+    gid = torch.arange(n, device=dev) // coarse_group
+    gi = graph.odom.i // coarse_group
+    gj = graph.odom.j // coarse_group
     hc = torch.zeros((nc * nc, dp, dp), dtype=dt, device=dev)
     hc.index_add_(0, gid * nc + gid, d.hpp_diag)
     hc.index_add_(0, gi * nc + gj, d.hpp_off)
     hc.index_add_(0, gj * nc + gi, d.hpp_off.transpose(-1, -2))
+    ids = (graph.lm_edges.pose // coarse_group) * m + graph.lm_edges.lm
+    u = torch.zeros((nc * m, dp * dl), dtype=dt, device=dev)
+    u.index_add_(0, ids, d.hpl.reshape(-1, dp * dl))
+    # as in the JAX package, the sum across ranks takes in the diagonal
+    # blocks, which are complete on every rank: S_c's diagonal terms count
+    # once per rank under a group (a preconditioner, not the operator)
+    hc, u = all_reduce(group, hc, u)
     sc = hc.reshape(nc, nc, dp, dp).permute(2, 0, 3, 1).reshape(
         dp * nc, dp * nc
     )
 
-    ids = (graph.lm_edges.pose // group) * m + graph.lm_edges.lm
-    u = torch.zeros((nc * m, dp * dl), dtype=dt, device=dev)
-    u.index_add_(0, ids, d.hpl.reshape(-1, dp * dl))
     u = u.reshape(nc, m, dp, dl)                    # U[c, lm, a, b]
     el = _chol_small(hll_inv)                       # [m, dl, dl] lower
     # V[a*nc + c, b2*m + lm] = sum_b U[c, lm, a, b] L[lm, b, b2]
@@ -659,7 +690,8 @@ class SolveStats(NamedTuple):
 
 def pcg(
     matvec, precond_apply, rhs: torch.Tensor, tol: float, max_iters: int,
-    restart_every: int = 64, unroll: bool = False,
+    restart_every: int = 64, unroll: bool = False, group=None,
+    dot_group=None,
 ) -> PCGResult:
     """Preconditioned conjugate gradients over pose-space ``[N, d]``
     tensors: the plain loop, the kernels' baseline and oracle.
@@ -672,14 +704,28 @@ def pcg(
     breakdown, ``p^T S p <= 0`` or not finite, which stops the solve for
     good) is a masked no-op, so the loop reads one flag to the host per
     chunk and none per iteration.  ``unroll`` is the reference's XLA
-    cost-analysis harness and is not ported (ROADMAP.md "Do not port")."""
+    cost-analysis harness and is not ported (ROADMAP.md "Do not port").
+
+    ``group`` is the process group of a sharded solve, whose ``matvec``
+    sums across the ranks: there each iteration waits for the ranks anyway,
+    so the loop reads the iteration's flag to the host and leaves the chunk
+    at its first no-op iteration (the rest of the chunk would change
+    nothing) instead of running its collectives.  ``dot_group`` set means
+    the PCG state itself is sharded (the partitioned solve,
+    ``parallel/partition.py``): the inner products sum their rank-local
+    parts across the group, ``p^T A p`` and ``r^T r`` in one collective.
+    Every flag read is of values that came out of an all-reduce or were
+    computed alike on every rank, so the ranks take the same decisions."""
     if unroll:
         raise NotImplementedError(
             "pcg_unroll: the JAX package's cost-analysis harness is not "
             "ported (ROADMAP.md, 'Do not port')")
 
+    def dots(*pairs):
+        return all_reduce(dot_group, *((a * b).sum() for a, b in pairs))
+
     def dot(a, b):
-        return (a * b).sum()
+        return dots((a, b))[0]
 
     atol2 = (tol ** 2) * dot(rhs, rhs)
     n_chunks = -(-max_iters // restart_every)
@@ -697,9 +743,12 @@ def pcg(
     ):
         for _ in range(restart_every):
             ap = matvec(p)
-            pap = dot(p, ap)
+            pap, rr = dots((p, ap), (r, r))
             breakdown = ~(pap > 0.0) | ~torch.isfinite(pap)
-            done = stop | breakdown | (dot(r, r) <= atol2) | (it >= max_iters)
+            done = stop | breakdown | (rr <= atol2) | (it >= max_iters)
+            if group is not None and bool(done.item()):
+                stop = stop | breakdown
+                break
             alpha = torch.where(done, zero, rz / pap)
             x = x + alpha * p
             r = r - alpha * ap
@@ -732,12 +781,14 @@ class PrecondState(NamedTuple):
 
 
 def _matvec_and_sdiag(d: BlockSystem, hll_inv: torch.Tensor,
-                      graph: FactorGraph2D):
+                      graph: FactorGraph2D, group=None):
     """The S operator at the current (damped) linearization on the
     vertex-major grids, and a thunk for the diagonal blocks of S (only a
-    preconditioner build needs them)."""
+    preconditioner build needs them); under ``group`` on this rank's edge
+    shard, with its partials summed across the ranks."""
     op = make_plan_operator(d, hll_inv, graph)
-    return (lambda x: plan_matvec(op, x)), (lambda: plan_s_diag(op))
+    return ((lambda x: plan_matvec(op, x, group)),
+            (lambda: plan_s_diag(op, group)))
 
 
 def build_precond(
@@ -748,6 +799,7 @@ def build_precond(
     precond: str,
     coarse_group: int,
     chunk: int = 64,
+    group=None,
 ) -> PrecondState:
     """The plain loop's preconditioner at the current linearization:
     "jacobi" (inverse diagonal blocks of S), "tridiag" (PCR on the
@@ -756,7 +808,8 @@ def build_precond(
     groups of ``coarse_group`` poses)."""
     local_kind, _, coarse_kind = precond.partition("+")
     if local_kind in ("tridiag", "chunk"):
-        upper = chain_upper(d, graph.odom.i, graph.odom.j, graph.num_poses)
+        upper = chain_upper(d, graph.odom.i, graph.odom.j, graph.num_poses,
+                            group)
         local = (build_tridiag_precond(s_diag, upper)
                  if local_kind == "tridiag"
                  else build_chunk_precond(s_diag, upper, chunk))
@@ -764,7 +817,8 @@ def build_precond(
         local = inv_blocks(s_diag)
     coarse = None
     if coarse_kind == "coarse":
-        coarse = build_coarse_precond(d, hll_inv, graph, coarse_group)
+        coarse = build_coarse_precond(d, hll_inv, graph, coarse_group,
+                                      group)
     return PrecondState(local=local, coarse=coarse)
 
 
@@ -796,28 +850,32 @@ def schur_solve(
     pstate: PrecondState | None = None,
     chunk: int = 64,
     unroll: bool = False,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor, SolveStats]:
     """Solve ``(H + lam I) dx = -b`` by Schur elimination and the plain PCG
     loop.  A prebuilt ``pstate`` skips the preconditioner build (the
-    stateful refresh path).  Returns ``(dx_poses [N, dp], dx_landmarks
-    [M, dl], stats)``."""
+    stateful refresh path).  Under ``group`` (the edge-sharded solve) the
+    PCG state is replicated on every rank and only the edge partials cross
+    the ranks.  Returns ``(dx_poses [N, dp], dx_landmarks [M, dl],
+    stats)``."""
     plan = _plan(graph)
     d = damp(sys, lam)
     hll_inv = inv_blocks(d.hll)
-    rhs = -d.bp + hpl_matvec(d, graph.lm_edges.lm, bm.mv(hll_inv, d.bl), plan)
-    matvec, s_diag_fn = _matvec_and_sdiag(d, hll_inv, graph)
+    rhs = -d.bp + hpl_matvec(d, graph.lm_edges.lm, bm.mv(hll_inv, d.bl), plan,
+                             group)
+    matvec, s_diag_fn = _matvec_and_sdiag(d, hll_inv, graph, group)
     if pstate is None:
         pstate = build_precond(d, hll_inv, graph, s_diag_fn(), precond,
-                               coarse_group, chunk)
+                               coarse_group, chunk, group)
     res = pcg(matvec, precond_apply_fn(pstate, precond, coarse_group), rhs,
-              tol, max_iters, restart_every, unroll)
-    u = hlp_matvec(d, graph.lm_edges.pose, res.x, plan)
+              tol, max_iters, restart_every, unroll, group=group)
+    u = hlp_matvec(d, graph.lm_edges.pose, res.x, plan, group)
     dx_l = bm.mv(hll_inv, -d.bl - u)
     return res.x, dx_l, SolveStats(pcg_iters=res.iterations,
                                    pcg_residual=res.residual_norm)
 
 
-def schur_linearize_solve(cfg: OptimizerConfig):
+def schur_linearize_solve(cfg: OptimizerConfig, group=None):
     """The linearize-solve that ``GaussNewton`` calls each iteration:
     assemble, then the fused PCG solve in the mode the gate
     (``fused_pcg.fused_mode``) picks, the resident or the streamed band
@@ -831,18 +889,22 @@ def schur_linearize_solve(cfg: OptimizerConfig):
     ``GaussNewton`` threads one preconditioner through its loop.  It is
     rebuilt (at the current graph and lambda) when ``calls % refresh == 0
     and calls > 0``, so only for ``refresh > 1``; ``refresh <= 0`` keeps
-    the first one."""
+    the first one.
+
+    Under ``group`` (the edge-sharded solve) the solve is stateless and
+    the gate declines the kernels, as the JAX package's does under an
+    ``axis_name``."""
     from toyslam_torch.ops import fused_pcg as fp
 
     def _assemble(graph: FactorGraph2D) -> BlockSystem:
         return assemble_blocks(
             graph, huber_delta=cfg.huber_delta,
             fixed_prior=cfg.fixed_prior,
-            exact_odom_jacobians=cfg.exact_odom_jacobians,
+            exact_odom_jacobians=cfg.exact_odom_jacobians, group=group,
         )
 
     def _solve(graph, lam, pre=None):
-        mode = fp.gated_mode(cfg, graph)
+        mode = fp.gated_mode(cfg, graph, group)
         sys = _assemble(graph)
         if mode is not None:
             dx_p, dx_l, stats = fp.fused_schur_solve(
@@ -855,11 +917,12 @@ def schur_linearize_solve(cfg: OptimizerConfig):
                 sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters,
                 cfg.pcg_restart_every, cfg.pcg_precond, cfg.pcg_coarse_group,
                 pstate=pre, chunk=cfg.pcg_chunk, unroll=cfg.pcg_unroll,
+                group=group,
             )
         return dx_p, dx_l, sys.err, stats
 
     refresh = cfg.pcg_precond_refresh
-    if refresh == 1:
+    if refresh == 1 or group is not None:
 
         def solve(graph: FactorGraph2D, lam: torch.Tensor):
             return _solve(graph, lam)

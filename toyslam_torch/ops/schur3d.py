@@ -12,8 +12,11 @@ Port of ``toyslam_tpu.ops.schur3d``.  The per-vertex sums go through the
 graph's gather tables, as ``schur.assemble_blocks`` does.  Where the gate
 declines the kernels (``pcg_backend="xla"``, loop closures in an SE(3)
 graph, layouts past the budgets) the solve takes the plain PCG loop of
-``schur.schur_solve`` at dp=6, dl=3, as the reference does.  Left out: the
-``axis_name``/psum hooks of the sharded solve (ROADMAP.md A.12).
+``schur.schur_solve`` at dp=6, dl=3, as the reference does.  The
+reference's ``axis_name`` hooks are the optional ``group`` arguments, as in
+``ops/schur.py``: the edge-sharded SE(3) solve
+(``parallel.distributed_linearize_solve_3d``) sums its per-vertex partials
+across a ``torch.distributed`` process group.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from toyslam_torch.ops import edge_blocks3d as eb3
 from toyslam_torch.ops import gather_plan as gp
 from toyslam_torch.ops import residuals3d as res3
 from toyslam_torch.ops import schur
+from toyslam_torch.ops.collective import all_reduce
 from toyslam_torch.ops.schur import BlockSystem, _plan
 
 
@@ -35,9 +39,11 @@ def assemble_blocks_3d(
     huber_delta: float,
     fixed_prior: float = 1e6,
     exact_odom_jacobians: bool = False,
+    group=None,
 ) -> BlockSystem:
     """Linearize every edge and sum the 6/3 blocks per vertex through the
-    graph's gather tables."""
+    graph's gather tables (and across ``group``, in one collective, as
+    ``schur.assemble_blocks`` does)."""
     plan = _plan(graph)
     t_oi, t_oj = plan.odom_by_i, plan.odom_by_j
     t_lp, t_ll = plan.lm_by_pose, plan.lm_by_lm
@@ -66,6 +72,9 @@ def assemble_blocks_3d(
     hll = gp.table_sum(rb.w_btb, t_ll)
     bp = bp + gp.table_sum(rb.bp_c, t_lp)
     bl = gp.table_sum(rb.bl_c, t_ll)
+    hpp_diag, hll, bp, bl, err = all_reduce(
+        group, hpp_diag, hll, bp, bl,
+        od.robust_err.sum() + rb.robust_err.sum())
 
     # gauge priors + padding regularization
     eye6 = torch.eye(6, dtype=hpp_diag.dtype, device=hpp_diag.device)
@@ -76,8 +85,6 @@ def assemble_blocks_3d(
     hll = hll + lm_reg[:, None, None] * eye3
     bp = bp * (1.0 - graph.pose_fixed)[:, None]
     bl = bl * (1.0 - graph.lm_fixed)[:, None]
-
-    err = od.robust_err.sum() + rb.robust_err.sum()
     return BlockSystem(
         hpp_diag=hpp_diag, hpp_off=hpp_off, hll=hll, hpl=rb.w_hpl,
         bp=bp, bl=bl, err=err,
@@ -105,21 +112,22 @@ def total_error_3d(
     return od.robust_err.sum() + rp.robust_err.sum()
 
 
-def schur3d_linearize_solve(cfg: OptimizerConfig):
+def schur3d_linearize_solve(cfg: OptimizerConfig, group=None):
     """The linearize-solve of ``GaussNewton`` for SE(3) graphs (with
     ``retract=se3.retract``): assemble, then the fused PCG solve in the mode
     the gate picks, with both kernels at dp=6, or the plain PCG loop where
     the gate declines them (``pcg_backend="fused"`` there raises
     ``ValueError``).  Returns ``(dx_poses [N, 6], dx_landmarks [M, 3], err,
     stats)``.  Like the reference's, this solve carries no preconditioner
-    state: it builds one per call whatever ``pcg_precond_refresh`` says."""
+    state: it builds one per call whatever ``pcg_precond_refresh`` says.
+    Under ``group`` it runs on this rank's edge shard with the plain loop."""
     from toyslam_torch.ops import fused_pcg as fp
 
     def solve(graph: FactorGraph3D, lam: torch.Tensor):
-        mode = fp.gated_mode(cfg, graph)
+        mode = fp.gated_mode(cfg, graph, group)
         sys = assemble_blocks_3d(
             graph, huber_delta=cfg.huber_delta, fixed_prior=cfg.fixed_prior,
-            exact_odom_jacobians=cfg.exact_odom_jacobians,
+            exact_odom_jacobians=cfg.exact_odom_jacobians, group=group,
         )
         if mode is not None:
             dx_p, dx_l, stats = fp.fused_schur_solve(
@@ -131,7 +139,7 @@ def schur3d_linearize_solve(cfg: OptimizerConfig):
             dx_p, dx_l, stats = schur.schur_solve(
                 sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters,
                 cfg.pcg_restart_every, cfg.pcg_precond, cfg.pcg_coarse_group,
-                chunk=cfg.pcg_chunk, unroll=cfg.pcg_unroll,
+                chunk=cfg.pcg_chunk, unroll=cfg.pcg_unroll, group=group,
             )
         return dx_p, dx_l, sys.err, stats
 

@@ -12,7 +12,12 @@ Python loop in place of ``lax.while_loop``:
 * convergence when ``||lr * dx|| < convergence_eps``;
 * with ``reject_worse_steps``, Levenberg-Marquardt step rejection;
 * a stateful solve (``pcg_precond_refresh != 1``) gets its carry from
-  ``solve.init_state(graph)`` and threads it through the iterations.
+  ``solve.init_state(graph)`` and threads it through the iterations;
+* a sharded solve (``toyslam_torch.parallel``) runs the loop on every rank
+  over the rank's block: where the solve has ``error_fn`` it gives the
+  chi^2 of a state for the step rejection, and where it has
+  ``global_sum`` the step norm is summed over the ranks with it, so that
+  every rank takes the same decisions.
 
 All loop state stays on the graph's device; the loop reads the
 ``converged``/``diverged`` flags to the host once per iteration.
@@ -79,7 +84,8 @@ class GaussNewton:
     loop), "schur_grid" (``ops/grid_schur.py``), all on SE(2) graphs with
     ``se2.retract``, or "schur3d" (SE(3) BA graphs, ``se3.retract``).
     Landmarks update additively in all.  A solve with a ``prepare``
-    attribute lays out the graph for itself before the loop."""
+    attribute lays out the graph for itself before the loop, and one with
+    an ``error_fn`` attribute gives the step rejection its chi^2."""
 
     config: OptimizerConfig = OptimizerConfig()
     solve: Callable | None = None
@@ -111,7 +117,9 @@ class GaussNewton:
             object.__setattr__(self, "retract",
                                se3.retract if se3d else se2.retract)
         if cfg.reject_worse_steps and self.error_fn is None:
-            if se3d:
+            if hasattr(self.solve, "error_fn"):
+                err = self.solve.error_fn
+            elif se3d:
                 from toyslam_torch.ops.schur3d import total_error_3d
 
                 err = functools.partial(
@@ -185,6 +193,8 @@ def _run(cfg, solve, retract, error_fn, graph: FactorGraph2D) -> OptimizeResult:
     # the carry of a stateful solve (the refreshed PCG preconditioner)
     stateful = getattr(solve, "stateful", False)
     sstate = solve.init_state(graph) if stateful else None
+    # the sum over the ranks of a solve whose state is sharded
+    global_sum = getattr(solve, "global_sum", lambda *ts: ts)
 
     while it < cfg.iterations and not converged and not diverged:
         g = graph.with_state(poses, landmarks)
@@ -194,7 +204,8 @@ def _run(cfg, solve, retract, error_fn, graph: FactorGraph2D) -> OptimizeResult:
             dx_p, dx_l, err, stats = solve(g, lam)
         step_p = dx_p * cfg.lr
         step_l = dx_l * cfg.lr
-        dx_norm = torch.sqrt((step_p**2).sum() + (step_l**2).sum())
+        sq_p, sq_l = global_sum((step_p**2).sum(), (step_l**2).sum())
+        dx_norm = torch.sqrt(sq_p + sq_l)
         errors[it] = err
         pcg_iters[it] = stats.pcg_iters
         pcg_residuals[it] = stats.pcg_residual
