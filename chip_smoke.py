@@ -134,6 +134,14 @@ Run from the root of a checkout.  Phases, each of which must pass:
    single-device plain loop and to the JAX package's partitioned run
    (``PART_REF``), with the boundary fractions and the collectives per PCG
    iteration.
+28. ``slab_band_matvec``: the slab band matvec (B3) against its plain
+   version on the card at ``Np=10240`` and (W, B) = (64, 256), (320, 512),
+   (320, 1024), (576, 512), (576, 1024): within 1e-5 of max|want|, the
+   same bits on a rerun, each timed against its plain version and its
+   bound; then its entry point, ``python -m
+   toyslam_torch.scripts.exp_band_kernel``, in process (``main``): the
+   correctness check against the numpy oracle and the timing sweep, every
+   launch B3's.
 Each of phases 24-27 prints a ``dist_timing`` line (GN-iter/s at 4 and 1
 ranks beside the single-device plain loop, ms per collective) with the
 card's name and power limit: ranks that share one card take turns on it,
@@ -153,7 +161,8 @@ The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 its path, largest difference from the plain version, ms, plain_ms,
 bound_ms, bound_by, library_ms; the same for B1 and B2 at dp=6, for B2 on
 the grid path, at 100k and on the incrementally initialised 100k graph,
-and for B1 on the serving path at both request sizes); the last line is
+for B1 on the serving path at both request sizes, and for B3 at each of
+its five shapes); the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device the script exits non-zero and prints no result.
 """
@@ -182,6 +191,12 @@ KERNELS = {
         "route": "cuda",
         "source": "toyslam_torch/csrc/band_fused_pcg_chunk.cu",
         "replaces": "toyslam_tpu/ops/fused_pcg.py:524",
+    },
+    "slab_band_matvec": {
+        "name": "slab_band_matvec",
+        "route": "cuda",
+        "source": "toyslam_torch/csrc/slab_band_matvec.cu",
+        "replaces": "scripts/exp_band_kernel.py:36",
     },
 }
 REL_TOL = 1e-4
@@ -429,17 +444,21 @@ def chunk_fns(kernel):
 
 
 def reset_counts():
+    from toyslam_torch.ops import band_matvec as bmv
     from toyslam_torch.ops import fused_pcg as fp
 
     fp.fused_pcg_chunk.launches = 0
     fp.band_fused_pcg_chunk.launches = 0
+    bmv.slab_band_matvec.launches = 0
 
 
 def read_counts():
+    from toyslam_torch.ops import band_matvec as bmv
     from toyslam_torch.ops import fused_pcg as fp
 
     return {"fused_pcg_chunk": fp.fused_pcg_chunk.launches,
-            "band_fused_pcg_chunk": fp.band_fused_pcg_chunk.launches}
+            "band_fused_pcg_chunk": fp.band_fused_pcg_chunk.launches,
+            "slab_band_matvec": bmv.slab_band_matvec.launches}
 
 
 def compare_chunks(case, op, pre, rhs, chunk=16, maxit=200, tol=1e-6,
@@ -2000,7 +2019,8 @@ def phase_serve(device):
                 rtol=1e-5, atol=1e-5)),
             "25 B1 launches per 150-pose request": all(
                 r["kernel_launches"] == {"fused_pcg_chunk": 25,
-                                         "band_fused_pcg_chunk": 0}
+                                         "band_fused_pcg_chunk": 0,
+                                         "slab_band_matvec": 0}
                 for r in rows[:3]),
             "2000-pose request through B1":
                 rows[3]["kernel_launches"]["fused_pcg_chunk"] > 0
@@ -2917,6 +2937,90 @@ def phase_dist_scale(device, smi):
     return m
 
 
+# --- phase 28: the slab band matvec (B3) and its entry point -------------
+
+
+def slab_pass_split(x, slab, W, B):
+    """B3's device ms per t-pass and per w-pass over 20 matvecs launched
+    back to back (``band_matvec.pass_ms``: CUDA events between the
+    passes)."""
+    from toyslam_torch.ops import band_matvec as bmv
+
+    tp, wp = bmv.pass_ms(x, slab, W, B)
+    return {"tpass": tp, "wpass": wp, "wpass_share": wp / (tp + wp)}
+
+
+def phase_slab_band_matvec(device):
+    """Phase 28: B3 against its plain version on the card at the entry
+    point's correctness shape and its four sweep shapes (Np=10240), on
+    seeded inputs: within 1e-5 of max|want| (the JAX script's own bound),
+    finite, of shape [3, Np], and the same bits on a second launch; each
+    shape timed against its plain version (CUDA events, plain, kernel,
+    kernel, plain) beside its bound, with each pass's device time
+    (slab_pass_split).  Then the entry point itself,
+    ``toyslam_torch.scripts.exp_band_kernel.main(["--device", "cuda"])``,
+    in process with the counts set to 0 just before it: every launch of
+    its check and its sweep is B3's, none is B1's or B2's."""
+    import torch
+
+    from toyslam_torch.ops import band_matvec as bmv
+    from toyslam_torch.scripts import exp_band_kernel as ebk
+
+    np_ = ebk.NP
+    gen = torch.Generator(device=device).manual_seed(28)
+    rows = {}
+    for W, B in [ebk.CHECK, *ebk.SWEEP]:
+        x = torch.randn(3, np_, generator=gen, device=device)
+        slab = torch.randn(np_ // B, W, 6, B, generator=gen, device=device)
+        want = bmv.slab_band_matvec_ref(x, slab, W, B)
+        got = bmv.slab_band_matvec(x, slab, W, B)
+        again = bmv.slab_band_matvec(x, slab, W, B)
+        torch.cuda.synchronize()
+        max_abs = float((got - want).abs().max())
+        rel = max_abs / float(want.abs().max())
+        same = torch.equal(got, again)
+
+        def ker(x=x, slab=slab, W=W, B=B):
+            bmv.slab_band_matvec(x, slab, W, B)
+
+        def plain(x=x, slab=slab, W=W, B=B):
+            bmv.slab_band_matvec_ref(x, slab, W, B)
+
+        p1, k1, k2, p2 = (cuda_ms(plain, 5), cuda_ms(ker, 50),
+                          cuda_ms(ker, 50), cuda_ms(plain, 5))
+        rows[f"W{W}_B{B}"] = {
+            "pass_ms": slab_pass_split(x, slab, W, B),
+            "W": W, "B": B, "ok": bool(
+                rel <= ebk.REL_TOL and same and tuple(got.shape) == (3, np_)
+                and bool(torch.isfinite(got).all())),
+            "rel": rel, "max_abs_err": max_abs, "rerun_identical": same,
+            "ms": {"kernel": [k1, k2], "plain": [p1, p2]},
+            **bmv.bound(np_, W, B)}
+        log("slab_band_check " + json.dumps(rows[f"W{W}_B{B}"]))
+    bad = [k for k, r in rows.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"B3 disagrees with its plain version: {bad}")
+
+    reset_counts()
+    entry = ebk.main(["--device", "cuda"])
+    launches = read_counts()
+    want_launches = 1 + len(ebk.SWEEP) * (1 + ebk.REPS * ebk.ROUNDS)
+    m = {"shapes": rows, "entry_point": entry, "launches": launches}
+    log("slab_band_matvec " + json.dumps(
+        {"entry_point": entry, "launches": launches}))
+    failed_checks("slab band matvec", {
+        "every shape checked": len(rows) == 1 + len(ebk.SWEEP),
+        "entry point on the card": entry["device"] == "cuda"
+        and len(entry["sweep"]) == len(ebk.SWEEP),
+        "entry point through B3 only":
+            launches["slab_band_matvec"] == want_launches
+            and launches["fused_pcg_chunk"] == 0
+            and launches["band_fused_pcg_chunk"] == 0,
+        "entry point's check": entry["check"]["rel"] < ebk.REL_TOL,
+    })
+    return m
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3019,6 +3123,8 @@ def main(argv=None) -> int:
             dist3d=phase_dist_partition3d(device, smi))),
         ("dist_scale", lambda: state.update(
             dist_scale=phase_dist_scale(device, smi))),
+        ("slab_band_matvec", lambda: state.update(
+            slab=phase_slab_band_matvec(device))),
     ]
     extra = {"incr100k_diag": lambda: phase_incr100k_diag(device)}
     if only is not None:
@@ -3153,7 +3259,24 @@ def main(argv=None) -> int:
         launches=sum(serve_b1.values()), launches_by_path=serve_b1,
         max_abs_err=state["max_abs"], **serve_times(150),
         poses2000=serve_times(2000), library_ms=None)
-    log(json.dumps({"kernels": [b1, b2]}))
+    # B3 on its entry point's run; headline numbers at W=576, B=512 (the
+    # window the JAX script's docstring gives for the 10k workload), every
+    # shape under by_shape.  library_ms: no single PyTorch call computes
+    # this banded V V^T matvec (a dense V V^T product is other work)
+    sl = state["slab"]["shapes"]
+
+    def slab_times(r):
+        return dict(ms=statistics.mean(r["ms"]["kernel"]),
+                    plain_ms=statistics.mean(r["ms"]["plain"]),
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+
+    b3 = dict(KERNELS["slab_band_matvec"])
+    b3.update(
+        launches=state["slab"]["launches"]["slab_band_matvec"],
+        max_abs_err=max(r["max_abs_err"] for r in sl.values()),
+        **slab_times(sl["W576_B512"]), library_ms=None,
+        by_shape={k: slab_times(r) for k, r in sl.items()})
+    log(json.dumps({"kernels": [b1, b2, b3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """The fused-PCG chunk wrappers and their hand-written CUDA kernels (the
 resident B1; the band B2 on the card only, its CPU side is in
-test_torch_band.py).
+test_torch_band.py), and on the card the slab band matvec B3 (its CPU side
+is in test_torch_band_matvec.py).
 
 This file imports neither JAX nor the JAX package, so the GPU tests run on
 a machine without them:
@@ -463,3 +464,28 @@ def test_dp6_band_kernel_matches_plain_version(cuda, restart):
         1e-4 * float(rhs.abs().max())
     for name in fp.ChunkState._fields:
         assert torch.equal(getattr(ker, name), getattr(again, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("np_,W,B", [(1024, 64, 256), (512, 96, 64),
+                                     (1000, 40, 64), (10240, 576, 512)])
+def test_slab_band_matvec_matches_plain_version(cuda, np_, W, B):
+    """B3 (csrc/slab_band_matvec.cu) against its plain version: W < B,
+    W > B, Np not a multiple of B, and a sweep shape; rel 1e-5 of max|want|
+    and the same bits on a rerun."""
+    from toyslam_torch.ops import band_matvec as bmv
+
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.normal(size=(3, np_)), dtype=torch.float32,
+                     device=cuda)
+    slab = torch.tensor(rng.normal(size=(np_ // B, W, 6, B)),
+                        dtype=torch.float32, device=cuda)
+    before = bmv.slab_band_matvec.launches
+    got = bmv.slab_band_matvec(x, slab, W, B)
+    again = bmv.slab_band_matvec(x, slab, W, B)
+    torch.cuda.synchronize()
+    assert bmv.slab_band_matvec.launches == before + 2
+    want = bmv.slab_band_matvec_ref(x, slab, W, B)
+    assert float((got - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
+    assert torch.equal(got, again)

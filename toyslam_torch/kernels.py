@@ -53,7 +53,7 @@ def _nvcc() -> str:
     return nvcc
 
 
-KERNELS = ("fused_pcg_chunk", "band_fused_pcg_chunk")
+KERNELS = ("fused_pcg_chunk", "band_fused_pcg_chunk", "slab_band_matvec")
 
 _loaded: dict[str, KernelLibrary] = {}
 
