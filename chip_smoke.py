@@ -138,10 +138,13 @@ Run from the root of a checkout.  Phases, each of which must pass:
    version on the card at ``Np=10240`` and (W, B) = (64, 256), (320, 512),
    (320, 1024), (576, 512), (576, 1024): within 1e-5 of max|want|, the
    same bits on a rerun, each timed against its plain version and its
-   bound; then its entry point, ``python -m
+   bound, with its share of the bound, the slab GB/s, the device ms of its
+   tile launch and of its partial sum, and its time at every cluster size;
+   then its entry point, ``python -m
    toyslam_torch.scripts.exp_band_kernel``, in process (``main``): the
    correctness check against the numpy oracle and the timing sweep, every
-   launch B3's.
+   launch B3's; then the wrapper's host time per call
+   (``band_matvec_host``, line ``slab_band_host``).
 Each of phases 24-27 prints a ``dist_timing`` line (GN-iter/s at 4 and 1
 ranks beside the single-device plain loop, ms per collective) with the
 card's name and power limit: ranks that share one card take turns on it,
@@ -2941,13 +2944,63 @@ def phase_dist_scale(device, smi):
 
 
 def slab_pass_split(x, slab, W, B):
-    """B3's device ms per t-pass and per w-pass over 20 matvecs launched
-    back to back (``band_matvec.pass_ms``: CUDA events between the
-    passes)."""
+    """B3's device ms per tile launch and per partial sum over 20 matvecs
+    launched back to back (``band_matvec.pass_ms``: CUDA events between
+    the two), and the slab GB/s the tile launch reaches."""
     from toyslam_torch.ops import band_matvec as bmv
 
-    tp, wp = bmv.pass_ms(x, slab, W, B)
-    return {"tpass": tp, "wpass": wp, "wpass_share": wp / (tp + wp)}
+    main_ms, sum_ms = bmv.pass_ms(x, slab, W, B)
+    return {"main": main_ms, "sum": sum_ms,
+            "sum_share": sum_ms / (main_ms + sum_ms),
+            "main_slab_gb_s": slab.numel() * 4 / (main_ms * 1e-3) / 1e9}
+
+
+def graph_ms(fn, reps=20, rounds=3):
+    """Device ms per call of ``fn`` with no host in the way: ``reps`` calls
+    captured in one CUDA graph, replayed ``rounds`` times between CUDA
+    events (after one replay to warm up); the least round."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return min(out)
+
+
+def slab_cluster_sweep(x, slab, W, B):
+    """B3's device ms per matvec (graph_ms) at every cluster size the plan
+    can take for this W, each launched with its own plan
+    (``band_matvec._launch``).  Its launches are counted; the counts are
+    set to 0 before the entry point's run."""
+    from toyslam_torch.ops import band_matvec as bmv
+
+    out = {}
+    for k in range(1, bmv.MAX_CLUSTER + 1):
+        try:
+            plan = bmv.slab_plan(W, B, k)
+        except ValueError:
+            continue
+        if str(plan.cs) not in out:
+            out[str(plan.cs)] = graph_ms(
+                lambda: bmv._launch(x, slab, W, B, plan))
+    return out
 
 
 def phase_slab_band_matvec(device):
@@ -2956,14 +3009,20 @@ def phase_slab_band_matvec(device):
     seeded inputs: within 1e-5 of max|want| (the JAX script's own bound),
     finite, of shape [3, Np], and the same bits on a second launch; each
     shape timed against its plain version (CUDA events, plain, kernel,
-    kernel, plain) beside its bound, with each pass's device time
-    (slab_pass_split).  Then the entry point itself,
-    ``toyslam_torch.scripts.exp_band_kernel.main(["--device", "cuda"])``,
-    in process with the counts set to 0 just before it: every launch of
-    its check and its sweep is B3's, none is B1's or B2's."""
+    kernel, plain) beside its bound, with the achieved slab GB/s, the share
+    of the bound, its device time with no host in the way (graph_ms), each
+    launch's device time (slab_pass_split), its plan and the device time at
+    each cluster size (slab_cluster_sweep).  Then the entry
+    point itself, ``toyslam_torch.scripts.exp_band_kernel.main(["--device",
+    "cuda"])``, in process with the counts set to 0 just before it: every
+    launch of its check and its sweep is B3's, none is B1's or B2's.  Last,
+    the wrapper's host time per call at W=64 (``band_matvec_host``)."""
+    import dataclasses
+
     import torch
 
     from toyslam_torch.ops import band_matvec as bmv
+    from toyslam_torch.scripts import band_matvec_host
     from toyslam_torch.scripts import exp_band_kernel as ebk
 
     np_ = ebk.NP
@@ -2988,14 +3047,23 @@ def phase_slab_band_matvec(device):
 
         p1, k1, k2, p2 = (cuda_ms(plain, 5), cuda_ms(ker, 50),
                           cuda_ms(ker, 50), cuda_ms(plain, 5))
+        b = bmv.bound(np_, W, B)
+        per = (k1 + k2) / 2
+        dev_ms = graph_ms(ker)
         rows[f"W{W}_B{B}"] = {
+            "device_ms": dev_ms,
+            "device_share_of_bound": b["bound_ms"] / dev_ms,
             "pass_ms": slab_pass_split(x, slab, W, B),
             "W": W, "B": B, "ok": bool(
                 rel <= ebk.REL_TOL and same and tuple(got.shape) == (3, np_)
                 and bool(torch.isfinite(got).all())),
             "rel": rel, "max_abs_err": max_abs, "rerun_identical": same,
             "ms": {"kernel": [k1, k2], "plain": [p1, p2]},
-            **bmv.bound(np_, W, B)}
+            "slab_gb_s": slab.numel() * 4 / (per * 1e-3) / 1e9,
+            "share_of_bound": b["bound_ms"] / per,
+            "plan": dataclasses.asdict(bmv.slab_plan(W, B)),
+            "cluster_ms": slab_cluster_sweep(x, slab, W, B),
+            **b}
         log("slab_band_check " + json.dumps(rows[f"W{W}_B{B}"]))
     bad = [k for k, r in rows.items() if not r["ok"]]
     if bad:
@@ -3005,9 +3073,12 @@ def phase_slab_band_matvec(device):
     entry = ebk.main(["--device", "cuda"])
     launches = read_counts()
     want_launches = 1 + len(ebk.SWEEP) * (1 + ebk.REPS * ebk.ROUNDS)
-    m = {"shapes": rows, "entry_point": entry, "launches": launches}
+    host = band_matvec_host.host_us()
+    m = {"shapes": rows, "entry_point": entry, "launches": launches,
+         "host": host}
     log("slab_band_matvec " + json.dumps(
         {"entry_point": entry, "launches": launches}))
+    log("slab_band_host " + json.dumps(host))
     failed_checks("slab band matvec", {
         "every shape checked": len(rows) == 1 + len(ebk.SWEEP),
         "entry point on the card": entry["device"] == "cuda"
@@ -3268,7 +3339,9 @@ def main(argv=None) -> int:
     def slab_times(r):
         return dict(ms=statistics.mean(r["ms"]["kernel"]),
                     plain_ms=statistics.mean(r["ms"]["plain"]),
-                    bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    share_of_bound=r["share_of_bound"],
+                    device_ms=r["device_ms"])
 
     b3 = dict(KERNELS["slab_band_matvec"])
     b3.update(

@@ -129,6 +129,78 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         bmv.slab_band_matvec(x, slab, W, B)
 
 
+# (W, B): the smoke's five shapes, then W=1, W < 32, W > B with B=40, the
+# card tests' W=40 at B=64, a B that is not a multiple of 4, a window on 8
+# blocks of 16 warps x 7 rows, and the widest window a cluster of 8 takes
+PLAN_CASES = [(64, 256), (320, 512), (320, 1024), (576, 512), (576, 1024),
+              (1, 40), (33, 64), (96, 40), (40, 64), (50, 37), (800, 256),
+              (1024, 8)]
+
+
+@pytest.mark.parametrize("W,B", PLAN_CASES)
+def test_slab_plan_fits_a_block_and_covers_the_window(W, B):
+    p = bmv.slab_plan(W, B)
+    assert p.tl == 32 and 1 <= p.cs <= bmv.MAX_CLUSTER
+    assert p.smem_bytes <= 232_448
+    assert p.cs * p.wb >= W > (p.cs - 1) * p.wb
+    assert p.warps in (8, 16) and p.warps * p.nw >= p.wb
+    assert 1 <= p.nw <= bmv.MAX_NW
+    assert p.sp == p.wb + 31
+    assert p.part_shape(7, B) == (7 * -(-B // 32), p.cs, 3, p.wb + 31)
+    # the least cluster whose blocks stay within the plan's rows
+    rows = (bmv.ROWS_1 if W <= bmv.ROWS_1 else
+            bmv.ROWS_8 if W <= 8 * bmv.ROWS_8 else bmv.ROWS_16)
+    if p.cs > 1 and p.wb <= rows:
+        assert -(-W // (p.cs - 1)) > rows
+
+
+def test_slab_plan_at_the_sweep_shapes():
+    """Clusters of 6 blocks of 16 warps x 6 rows at W=576, 6 blocks of 8
+    warps x 7 rows at W=320, one block of 8 warps x 8 rows at W=64."""
+    assert bmv.slab_plan(576, 512) == bmv.SlabPlan(32, 6, 16, 96, 6, 13_236)
+    assert bmv.slab_plan(320, 1024) == bmv.SlabPlan(32, 6, 8, 54, 7, 7_252)
+    assert bmv.slab_plan(64, 256) == bmv.SlabPlan(32, 1, 8, 64, 8, 7_444)
+
+
+def test_slab_plan_takes_a_cluster_size_and_cuts_empty_ranks():
+    assert bmv.slab_plan(33, 64, 4) == bmv.SlabPlan(32, 4, 8, 9, 2, 6_292)
+    # 8 ranks of ceil(33/8) = 5 rows: the eighth would hold none
+    assert bmv.slab_plan(33, 64, 8).cs == 7
+    for cs in (0, 9):
+        with pytest.raises(ValueError):
+            bmv.slab_plan(33, 64, cs)
+
+
+@pytest.mark.parametrize("W", [1025, 4096])
+def test_slab_plan_refuses_a_window_no_cluster_holds(W):
+    """The card's kernel takes W <= 1024; the plain version, which the
+    wrapper runs on CPU tensors, any W."""
+    with pytest.raises(ValueError, match="rows a warp"):
+        bmv.slab_plan(W, 256)
+    x, slab = (torch.from_numpy(a) for a in _inputs(256, W, 256))
+    out = bmv.slab_band_matvec(x, slab, W, 256)
+    assert torch.equal(out, bmv.slab_band_matvec_ref(x, slab, W, 256))
+
+
+@pytest.mark.parametrize("W,cs,wb", [(65, 2, 33), (113, 3, 38)])
+def test_wrapper_on_cpu_at_plans_of_several_ranks(W, cs, wb):
+    """Windows that the plan splits over 2 and 3 blocks (the last rank's
+    share short at W=113): the CPU wrapper is the plain version."""
+    p = bmv.slab_plan(W, 64)
+    assert (p.cs, p.wb) == (cs, wb) and p.cs * p.wb >= W
+    x, slab = (torch.from_numpy(a) for a in _inputs(512, W, 64))
+    out = bmv.slab_band_matvec(x, slab, W, 64)
+    assert torch.equal(out, bmv.slab_band_matvec_ref(x, slab, W, 64))
+
+
+def test_launch_needs_the_card():
+    """The launch helper of the smoke's cluster sweep raises on CPU
+    tensors instead of computing anything."""
+    x, slab = (torch.from_numpy(a) for a in _inputs(512, 96, 64))
+    with pytest.raises(ValueError, match="no kernel for cpu"):
+        bmv._launch(x, slab, 96, 64, bmv.slab_plan(96, 64, 3))
+
+
 def test_pass_timer_needs_the_card():
     x, slab = (torch.from_numpy(a) for a in _inputs(512, 96, 64))
     with pytest.raises(ValueError):
@@ -167,4 +239,15 @@ def test_entry_point_runs_on_the_card_by_default():
             "from toyslam_torch.scripts.exp_band_kernel import main; main([])")
     proc = _python("-c", code)
     assert proc.returncode == 2 and "no CUDA device" in proc.stderr
+    assert proc.stdout == ""
+
+
+def test_host_timer_needs_the_card():
+    """``band_matvec_host`` times the wrapper on the card and exits 2
+    without one."""
+    code = ("import torch; torch.cuda.is_available = lambda: False; "
+            "from toyslam_torch.scripts.band_matvec_host import main; "
+            "main([])")
+    proc = _python("-c", code)
+    assert proc.returncode == 2 and "needs a CUDA device" in proc.stderr
     assert proc.stdout == ""

@@ -489,3 +489,47 @@ def test_slab_band_matvec_matches_plain_version(cuda, np_, W, B):
     assert float((got - want).abs().max()) <= \
         1e-5 * float(want.abs().max())
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("np_,W,B,cs", [
+    (1024, 1, 256, None), (1024, 33, 64, 4), (1024, 33, 64, 8),
+    (520, 96, 40, None), (1000, 40, 64, 3), (500, 50, 37, None),
+    (100, 8, 128, None), (2048, 800, 256, None), (2048, 1024, 256, None)])
+def test_slab_band_matvec_edge_shapes(cuda, np_, W, B, cs):
+    """B3 at W=1, W=33 on clusters of 4 and of 7 (the last rank short),
+    W > B with B=40 (a short last tile), Np=1000 with B=64 on 3 ranks, a B
+    that is not a multiple of 4 (4-byte copies), Np < B (no landmark), and
+    the widest windows, on 8 blocks of 16 warps x 7 and x 8 rows: rel 1e-5
+    of max|want|, the same bits on a rerun, one counted launch per call,
+    the plan's shared memory as the kernel computes it, and no spilled
+    register.  A forced cluster size goes through ``_launch`` (the smoke's
+    sweep), the plan's own through the wrapper."""
+    from toyslam_torch.ops import band_matvec as bmv
+
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.normal(size=(3, np_)), dtype=torch.float32,
+                     device=cuda)
+    slab = torch.tensor(rng.normal(size=(np_ // B, W, 6, B)),
+                        dtype=torch.float32, device=cuda)
+    plan = bmv.slab_plan(W, B, cs)
+    attrs = bmv._tile_attrs(plan)
+    assert attrs["smem_bytes"] == plan.smem_bytes
+    assert attrs["local_bytes"] == 0
+
+    def run():
+        if cs is None:
+            return bmv.slab_band_matvec(x, slab, W, B)
+        return bmv._launch(x, slab, W, B, plan)
+
+    before = bmv.slab_band_matvec.launches
+    got = run()
+    assert bmv.slab_band_matvec.launches == before + 1
+    again = run()
+    torch.cuda.synchronize()
+    assert bmv.slab_band_matvec.launches == before + 2
+    want = bmv.slab_band_matvec_ref(x, slab, W, B)
+    assert torch.isfinite(got).all() and got.shape == (3, np_)
+    assert float((got - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
+    assert torch.equal(got, again)
