@@ -10,11 +10,11 @@ Run from the root of a checkout.  Phases, each of which must pass:
    ptxas reports);
 2. the resident kernel (B1) vs plain PyTorch on the card: one chunk launch
    from the same state at (dp=3, Np=192, Mw=768, L=8), the same with L=0,
-   the same with a coarse level (nc=3) and at Np=2048, each a fresh and a
-   carried chunk — ``it`` and ``stop`` equal, x within 1e-4 of max|x|,
-   r_true and rr within 1e-4 of max|rhs| and ||rhs||^2, and a second
-   launch from the same state giving the same bits (see compare_chunks) —
-   and both timed;
+   the same with a coarse level (nc=3), at Np=2048 and at multi-loop-1k's
+   Np=1088 (L=11), each a fresh and a carried chunk — ``it`` and ``stop``
+   equal, x within 1e-4 of max|x|, r_true and rr within 1e-4 of max|rhs|
+   and ||rhs||^2, and a second launch from the same state giving the same
+   bits (see compare_chunks) — and both timed;
 3. the main path: the 150-pose seeded simulation, the graph build and
    ``GaussNewton(...).optimize`` on the card through B1, checked against
    the reference values of the JAX package (ATE 0.7552 within 2e-3,
@@ -138,13 +138,23 @@ Run from the root of a checkout.  Phases, each of which must pass:
    version on the card at ``Np=10240`` and (W, B) = (64, 256), (320, 512),
    (320, 1024), (576, 512), (576, 1024): within 1e-5 of max|want|, the
    same bits on a rerun, each timed against its plain version and its
-   bound, with its share of the bound, the slab GB/s, the device ms of its
-   tile launch and of its partial sum, and its time at every cluster size;
+   bound, with its share of the bound, the slab GB/s and the device ms of
+   its tile launch and of its partial sum;
    then its entry point, ``python -m
    toyslam_torch.scripts.exp_band_kernel``, in process (``main``): the
    correctness check against the numpy oracle and the timing sweep, every
    launch B3's; then the wrapper's host time per call
    (``band_matvec_host``, line ``slab_band_host``).
+29. ``bench``: the port's benchmark entry points in process: ``python -m
+   toyslam_torch.bench --reps 2 --rounds 2`` (the headline: ATE 0.7552
+   within 2e-3 through B1, the card's name and power limit) and ``python
+   -m toyslam_torch.scripts.bench_suite --quick`` (the JAX suite's eight
+   rows, one timed optimize each: every row's gate and launch expectation,
+   multi-loop-1k through B1 and the 10k rows through B2 under ``auto``);
+   then B1 on multi-loop-1k's own GN-iteration-0 system (Np=1088, Mw=768,
+   L=11, U from L2): the operator within 1e-5 and the chunked solve within
+   1e-3 of the plain version's, one chunk timed against its plain version
+   and its bound.
 Each of phases 24-27 prints a ``dist_timing`` line (GN-iter/s at 4 and 1
 ranks beside the single-device plain loop, ms per collective) with the
 card's name and power limit: ranks that share one card take turns on it,
@@ -154,7 +164,10 @@ so none of these is a scaling number.
 run) takes the initialised state of phase 23 through 80 iterations six
 ways: B2 with a chunk of 16 and of 15, its plain version in its place with
 both chunks, the plain grid loop, and B2 with every launch also run through
-its plain version from the same state (line ``incr100k_diag_trace``).
+its plain version from the same state (line ``incr100k_diag_trace``); where
+the two x part by more than 1e-3 of max|x|, the plain version runs that
+launch again in float64, and each f32 x's distance to it is printed (line
+``incr100k_diag_f64``).
 
 ``python3 chip_smoke.py --only serve,snapshot`` runs the named phases alone
 (the names are those of the ``phase <name>: ok`` lines) for development; it
@@ -164,8 +177,9 @@ The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 its path, largest difference from the plain version, ms, plain_ms,
 bound_ms, bound_by, library_ms; the same for B1 and B2 at dp=6, for B2 on
 the grid path, at 100k and on the incrementally initialised 100k graph,
-for B1 on the serving path at both request sizes, and for B3 at each of
-its five shapes); the last line is
+for B1 on the serving path at both request sizes and at multi-loop-1k's
+Np=1088, with the launches of each benchmark entry point's row under
+``bench``, and for B3 at each of its five shapes); the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device the script exits non-zero and prints no result.
 """
@@ -531,6 +545,7 @@ def phase_kernels(device):
         ("Np192_Mw768_jacobi", 192, 768, 0, 0, 1e-2),
         ("Np192_Mw768_L8_coarse3", 192, 768, 8, 3, 1e-2),
         ("Np2048_Mw768_L11", 2048, 768, 11, 0, 1e-1),
+        ("Np1088_Mw768_L11", 1088, 768, 11, 0, 1e-1),
     ]
     out, times = [], {}
     for i, (name, np_, mw, nl, nc, eps) in enumerate(cases):
@@ -675,8 +690,9 @@ def layer_system(gn, graph, mode="resident"):
                 graph, cfg.huber_delta, cfg.fixed_prior,
                 exact_odom_jacobians=cfg.exact_odom_jacobians)
         else:
-            state["sys"] = schur.assemble_blocks(graph, cfg.huber_delta,
-                                                 cfg.fixed_prior)
+            state["sys"] = schur.assemble_blocks(
+                graph, cfg.huber_delta, cfg.fixed_prior,
+                exact_odom_jacobians=cfg.exact_odom_jacobians)
 
     def eliminate():
         d = schur.damp(state["sys"], lam)
@@ -2377,15 +2393,30 @@ def incr100k_optimize(cfg, gprep, chi2, ate):
         "kernel_launches": read_counts()}
 
 
+def as_float64(tup):
+    """A NamedTuple of tensors (operator, preconditioner, chunk state) with
+    every floating tensor in float64."""
+    import torch
+
+    return type(tup)(*(t.double() if torch.is_tensor(t)
+                       and t.is_floating_point() else t for t in tup))
+
+
 class ChunkTrace:
     """Stands in for ``fused_pcg.band_fused_pcg_chunk`` during an optimize:
     every launch also runs the plain version from the same state, and the
     differences are kept per launch (scaled as in :func:`compare_chunks`);
-    the solve goes on with the kernel's result."""
+    the solve goes on with the kernel's result.  Where the two x part by
+    more than ``F64_ABOVE`` of max|x|, the plain version runs that launch
+    again in float64 on the same operands and state, and each f32 x's
+    distance to its x is kept (``f64``, scaled by its max|x|)."""
+
+    F64_ABOVE = 1e-3
 
     def __init__(self, kernel_fn, ref_fn):
         self.kernel_fn, self.ref_fn = kernel_fn, ref_fn
         self.rows = []
+        self._f64_operands = (None, None, None, None)
 
     @property
     def launches(self):
@@ -2399,7 +2430,7 @@ class ChunkTrace:
         ker = self.kernel_fn(op, pre, rhs, st, atol2, maxit, restart, chunk)
         ref = self.ref_fn(op, pre, rhs, st, atol2, maxit, restart, chunk)
         rhs_max = float(rhs.abs().max())
-        self.rows.append({
+        row = {
             "it_in": int(st.it), "restart": bool(restart),
             "it": [int(ker.it), int(ref.it)],
             "stop": [int(ker.stop), int(ref.stop)],
@@ -2408,7 +2439,23 @@ class ChunkTrace:
             "rr": abs(float(ker.rr) - float(ref.rr))
             / float((rhs * rhs).sum()),
             "rr_over_rhs2": float(ref.rr) / float((rhs * rhs).sum()),
-        })
+        }
+        if row["x"] > self.F64_ABOVE:
+            if (self._f64_operands[0] is not op
+                    or self._f64_operands[1] is not pre):
+                # once per operator and preconditioner (per GN iteration)
+                self._f64_operands = (None, None, None, None)
+                self._f64_operands = (op, pre, as_float64(op),
+                                      as_float64(pre))
+            op64, pre64 = self._f64_operands[2:]
+            r64 = self.ref_fn(op64, pre64, rhs.double(), as_float64(st),
+                              atol2.double(), maxit, restart, chunk)
+            scale = float(r64.x.abs().max())
+            row["f64"] = {
+                "kernel_x": float((ker.x - r64.x).abs().max()) / scale,
+                "plain_x": float((ref.x - r64.x).abs().max()) / scale,
+                "it": int(r64.it), "stop": int(r64.stop)}
+        self.rows.append(row)
         return ker
 
 
@@ -2418,10 +2465,12 @@ def phase_incr100k_diag(device):
     default-noise graph.  From one initialised state: the kernel held
     against its plain version on a seeded system of this layout (17 PCR
     levels, nc=1568) and at every launch of an 80-iteration optimize on
-    the row's own operands; then the same optimize with the kernel's plain
-    version in its place, with a chunk of 15 (a direction restart every
-    30 iterations, as the plain loop's, where 16 restarts every 16), and
-    through the plain grid loop."""
+    the row's own operands, and at each launch where their x part by more
+    than 1e-3 of max|x|, both held against the plain version run in
+    float64 (line ``incr100k_diag_f64``); then the same optimize with the
+    kernel's plain version in its place, with a chunk of 15 (a direction
+    restart every 30 iterations, as the plain loop's, where 16 restarts
+    every 16), and through the plain grid loop."""
     import dataclasses
 
     import torch
@@ -2485,6 +2534,18 @@ def phase_incr100k_diag(device):
         "stops": sum(r["stop"][0] for r in rows),
         "worst_x_per_gn_iteration": per_gn,
         "first_launches": rows[:12]}))
+    # which f32 x lies nearer the float64 plain version's, where they part
+    f64 = [dict(r["f64"], x=r["x"], it_in=r["it_in"]) for r in rows
+           if "f64" in r]
+    if f64:
+        log("incr100k_diag_f64 " + json.dumps({
+            "launches": len(f64),
+            "kernel_nearer": sum(r["kernel_x"] < r["plain_x"] for r in f64),
+            "worst": {k: max(r[k] for r in f64)
+                      for k in ("x", "kernel_x", "plain_x")},
+            "median": {k: statistics.median(r[k] for r in f64)
+                       for k in ("x", "kernel_x", "plain_x")},
+            "rows": f64}))
     for name, r in runs.items():
         log("incr100k_diag_run " + json.dumps({name: r}))
     bad = [r for r in out if not r["ok"]]
@@ -2984,25 +3045,6 @@ def graph_ms(fn, reps=20, rounds=3):
     return min(out)
 
 
-def slab_cluster_sweep(x, slab, W, B):
-    """B3's device ms per matvec (graph_ms) at every cluster size the plan
-    can take for this W, each launched with its own plan
-    (``band_matvec._launch``).  Its launches are counted; the counts are
-    set to 0 before the entry point's run."""
-    from toyslam_torch.ops import band_matvec as bmv
-
-    out = {}
-    for k in range(1, bmv.MAX_CLUSTER + 1):
-        try:
-            plan = bmv.slab_plan(W, B, k)
-        except ValueError:
-            continue
-        if str(plan.cs) not in out:
-            out[str(plan.cs)] = graph_ms(
-                lambda: bmv._launch(x, slab, W, B, plan))
-    return out
-
-
 def phase_slab_band_matvec(device):
     """Phase 28: B3 against its plain version on the card at the entry
     point's correctness shape and its four sweep shapes (Np=10240), on
@@ -3011,8 +3053,7 @@ def phase_slab_band_matvec(device):
     shape timed against its plain version (CUDA events, plain, kernel,
     kernel, plain) beside its bound, with the achieved slab GB/s, the share
     of the bound, its device time with no host in the way (graph_ms), each
-    launch's device time (slab_pass_split), its plan and the device time at
-    each cluster size (slab_cluster_sweep).  Then the entry
+    launch's device time (slab_pass_split) and its plan.  Then the entry
     point itself, ``toyslam_torch.scripts.exp_band_kernel.main(["--device",
     "cuda"])``, in process with the counts set to 0 just before it: every
     launch of its check and its sweep is B3's, none is B1's or B2's.  Last,
@@ -3062,7 +3103,6 @@ def phase_slab_band_matvec(device):
             "slab_gb_s": slab.numel() * 4 / (per * 1e-3) / 1e9,
             "share_of_bound": b["bound_ms"] / per,
             "plan": dataclasses.asdict(bmv.slab_plan(W, B)),
-            "cluster_ms": slab_cluster_sweep(x, slab, W, B),
             **b}
         log("slab_band_check " + json.dumps(rows[f"W{W}_B{B}"]))
     bad = [k for k, r in rows.items() if not r["ok"]]
@@ -3090,6 +3130,114 @@ def phase_slab_band_matvec(device):
         "entry point's check": entry["check"]["rel"] < ebk.REL_TOL,
     })
     return m
+
+
+# --- phase 29: the benchmark entry points --------------------------------
+
+
+def entry_lines(main_fn, argv):
+    """An entry point's ``main(argv)`` in process: its exit code and the
+    JSON lines it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = main_fn(argv)
+    return code, [json.loads(line) for line in buf.getvalue().splitlines()
+                  if line.startswith("{")]
+
+
+def multi_loop_b1(device):
+    """B1 at multi-loop-1k's shape on that row's GN-iteration-0 system: the
+    operator (the ``r_true = rhs - S x`` of one kernel chunk against the
+    plain operator on the same x, within 1e-5 of max|S x|), the solve (the
+    chunked PCG through the kernel against the same loop through the plain
+    version, at the row's tolerance and cap, within 1e-3 of max|x|), and
+    one chunk timed against its plain version and its bound.  The real
+    system's gauge prior makes r_true an f32 difference x 1e6 (phase 2 holds
+    the chunk itself on a seeded system), so these are B1's acceptance
+    bounds on the solve, not the chunk bounds of phase 2."""
+    import torch
+
+    from toyslam_torch.ops import fused_pcg as fp
+    from toyslam_torch.optimizer import GaussNewton
+    from toyslam_torch.scripts import bench_suite
+
+    name = "multi-loop-1k"
+    gn = GaussNewton(bench_suite.optimizer_config(name))
+    gdev = gn._prepare(bench_suite.row_graph(name)[0]).to(device)
+    state, layers = layer_system(gn, gdev)
+    for _, build in layers[:4]:       # assemble ... build_fused_operator
+        build()
+    op, pre, rhs = state["op"], state["pre"], state["rhs2"]
+    cfg = gn.config
+    chunk = cfg.pcg_fused_chunk
+    atol2 = ((cfg.pcg_tol ** 2) * (rhs * rhs).sum()).reshape(1)
+    ker = fp.fused_pcg_chunk(op, pre, rhs, fresh_state(rhs), atol2,
+                             cfg.pcg_max_iters, True, chunk)
+    sx = fp.fused_matvec_ref(op, ker.x)
+    args = (op, pre, rhs, cfg.pcg_tol, cfg.pcg_max_iters, chunk,
+            cfg.pcg_restart_every)
+    xk = fp._chunked_pcg(fp.fused_pcg_chunk, *args)
+    xr = fp._chunked_pcg(fp.fused_pcg_chunk_ref, *args)
+    torch.cuda.synchronize()
+    m = {"shapes": {"np": rhs.shape[1], "mw": op.u.shape[-1],
+                    "pcr_levels": pre.alphas.shape[0]},
+         "operator_rel": float((ker.rt - (rhs - sx)).abs().max()
+                               / sx.abs().max()),
+         "solve_rel": float((xk.x - xr.x).abs().max() / xr.x.abs().max()),
+         "solve_max_abs_err": float((xk.x - xr.x).abs().max()),
+         "pcg_iters": [int(xk.iterations), int(xr.iterations)],
+         "chunk_ms": chunk_times(op, pre, rhs, chunk),
+         "bound": chunk_bound(op, pre, rhs, chunk),
+         "u_bytes": op.u.numel() * 4,
+         "resident_u_in_smem": fp.b1_schedule(
+             device.index or 0, 3, rhs.shape[1], op.u.shape[-1], 0).resident}
+    log("multi_loop_b1 " + json.dumps(m))
+    return m
+
+
+def phase_bench(device, smi):
+    """Phase 29: the port's benchmark entry points in process.  ``python -m
+    toyslam_torch.bench --reps 2 --rounds 2``: exit 0, the ATE within 2e-3
+    of 0.7552, B1 launched and B2 not, the card's name and power limit;
+    ``python -m toyslam_torch.scripts.bench_suite --quick``: exit 0, the
+    eight rows in order, each row's gate (its accuracy and its kernel's
+    launches, counted from 0 over its first optimize), multi-loop-1k
+    through B1 and the 10k rows through B2 under ``auto``; then B1 at
+    multi-loop-1k's shape on that row's own system (:func:`multi_loop_b1`:
+    Np=1088, Mw=768, L=11)."""
+    from toyslam_torch import bench
+    from toyslam_torch.scripts import bench_suite
+
+    code, (head,) = entry_lines(bench.main, ["--reps", "2", "--rounds", "2"])
+    log("bench_headline " + json.dumps(head))
+    suite_code, lines = entry_lines(bench_suite.main, ["--quick"])
+    rows = {r["config"]: r for r in lines}
+    for r in lines:
+        log("bench_row " + json.dumps(r))
+    ml = multi_loop_b1(device)
+    failed_checks("bench", {
+        "headline exit 0": code == 0,
+        "headline ATE": abs(head["ate_rmse"] - ATE_REF) <= ATE_TOL,
+        "headline through B1": head["kernel_launches"]["fused_pcg_chunk"] > 0
+        and head["kernel_launches"]["band_fused_pcg_chunk"] == 0,
+        "headline card": head["card"] == smi,
+        "suite exit 0": suite_code == 0,
+        "every row": tuple(rows) == bench_suite.ROWS,
+        "every gate": all(r["gate"]["ok"] for r in lines),
+        "multi-loop-1k resident":
+            rows["multi-loop-1k"]["solver_mode"] == "resident",
+        "10k rows band": all(
+            rows[n]["solver_mode"] == "band"
+            for n in ("large-sparse-10k", "large-sparse-10k-revisit")),
+        "multi-loop B1 shape": ml["shapes"] == {
+            "np": 1088, "mw": 768, "pcr_levels": 11},
+        "multi-loop operator": ml["operator_rel"] <= 1e-5,
+        "multi-loop solve": ml["solve_rel"] <= 1e-3,
+    })
+    return {"headline": head, "rows": rows, "multi_loop": ml}
 
 
 def main(argv=None) -> int:
@@ -3196,6 +3344,7 @@ def main(argv=None) -> int:
             dist_scale=phase_dist_scale(device, smi))),
         ("slab_band_matvec", lambda: state.update(
             slab=phase_slab_band_matvec(device))),
+        ("bench", lambda: state.update(bench=phase_bench(device, smi))),
     ]
     extra = {"incr100k_diag": lambda: phase_incr100k_diag(device)}
     if only is not None:
@@ -3330,6 +3479,31 @@ def main(argv=None) -> int:
         launches=sum(serve_b1.values()), launches_by_path=serve_b1,
         max_abs_err=state["max_abs"], **serve_times(150),
         poses2000=serve_times(2000), library_ms=None)
+    # B1 and B2 on the benchmark entry points (phase 29): the launches of
+    # the headline's and of each suite row's first optimize; B1 timed and
+    # bound on multi-loop-1k's own GN-iteration-0 system (Np=1088)
+    bn = state["bench"]
+    bench_launches = {"headline": bn["headline"]["kernel_launches"]} | {
+        name: r["kernel_launches"] for name, r in bn["rows"].items()}
+    ml = bn["multi_loop"]
+    b1["bench"] = dict(
+        launches=sum(c["fused_pcg_chunk"] for c in bench_launches.values()),
+        launches_by_path={k: c["fused_pcg_chunk"]
+                          for k, c in bench_launches.items()})
+    b1["multi_loop_1k"] = dict(
+        launches=bn["rows"]["multi-loop-1k"]["kernel_launches"][
+            "fused_pcg_chunk"],
+        shapes=ml["shapes"], max_abs_err=ml["solve_max_abs_err"],
+        operator_rel=ml["operator_rel"], solve_rel=ml["solve_rel"],
+        ms=statistics.mean(ml["chunk_ms"]["kernel"]),
+        plain_ms=statistics.mean(ml["chunk_ms"]["plain"]),
+        bound_ms=ml["bound"]["bound_ms"], bound_by=ml["bound"]["bound_by"],
+        library_ms=None)
+    b2["bench"] = dict(
+        launches=sum(c["band_fused_pcg_chunk"]
+                     for c in bench_launches.values()),
+        launches_by_path={k: c["band_fused_pcg_chunk"]
+                          for k, c in bench_launches.items()})
     # B3 on its entry point's run; headline numbers at W=576, B=512 (the
     # window the JAX script's docstring gives for the 10k workload), every
     # shape under by_shape.  library_ms: no single PyTorch call computes

@@ -79,6 +79,8 @@ def test_port_imports_no_jax():
         "assert all('toyslam_torch.' + m in sys.modules for m in par)\n"
         "b3 = ['ops.band_matvec', 'scripts', 'scripts.exp_band_kernel']\n"
         "assert all('toyslam_torch.' + m in sys.modules for m in b3)\n"
+        "bench = ['bench', 'scripts.bench_suite']\n"
+        "assert all('toyslam_torch.' + m in sys.modules for m in bench)\n"
         "print(len([k for k in sys.modules if k.startswith('toyslam_torch')]))\n"
         "sys.exit(1 if bad else 0)\n"
     )

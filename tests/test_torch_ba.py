@@ -17,7 +17,8 @@ test_torch_ba_solve.py.
 
 Run as a script, ``python tests/test_torch_ba.py``, it prints the JAX
 package's f32 plain-PCG values of the BA configurations that chip_smoke.py
-holds the port to (see :func:`jax_reference`).
+holds the port to, then those of the BA rows of
+``toyslam_torch.scripts.bench_suite`` (see :func:`jax_reference`).
 """
 
 import dataclasses
@@ -197,14 +198,16 @@ def test_gate_at_the_ba_sizes_agrees_with_jax(size, mode):
 # --- the reference values of chip_smoke.py --------------------------------
 
 
-def jax_reference(case: str) -> dict:
+def jax_reference(case: str, poses=None, landmarks=None, kw=None) -> dict:
     """The JAX package's f32 plain-PCG (``pcg_backend="xla"``) run of one
-    of chip_smoke.py's BA configurations on the CPU: chi^2 per GN
+    of chip_smoke.py's BA configurations (or of ``poses`` x ``landmarks``
+    with the OptimizerConfig fields ``kw``) on the CPU: chi^2 per GN
     iteration, PCG iterations, initial and final ATE."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
-    poses, landmarks, kw = chip_smoke.BA_CASES[case]
+    if kw is None:
+        poses, landmarks, kw = chip_smoke.BA_CASES[case]
     jg, gt, _ = j_syn3.make_ba_problem(poses, landmarks, 24, seed=0)
     r = JGN(JOpt(**kw, pcg_backend="xla")).optimize(jg)
     it = int(r.iterations_run)
@@ -225,3 +228,9 @@ if __name__ == "__main__":
 
     for case in chip_smoke.BA_CASES:
         print(json.dumps(jax_reference(case)), flush=True)
+    # the BA rows of toyslam_torch.scripts.bench_suite (its BA_REF)
+    from toyslam_torch.scripts import bench_suite
+
+    for kw in (bench_suite.BA_OPT, bench_suite.BA_MATCHED_OPT):
+        print(json.dumps(jax_reference("ba3d-128x512", 128, 512, kw)),
+              flush=True)

@@ -21,6 +21,8 @@ chip_smoke.py).
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -204,6 +206,38 @@ def test_band_chunk_wrapper_on_cpu_runs_plain_version_uncounted():
     with pytest.raises(ValueError, match="dp=5"):
         t_fp._band_launch(top, tpre, torch.zeros(5, np_), st, atol2, 50,
                           True, 4)
+
+
+def test_band_chunk_plain_version_runs_in_float64():
+    """The plain band chunk takes float64 operands and state as they are
+    (chip_smoke.py's incr100k_diag holds B2 and its f32 plain version
+    against it): x in float64, within f32 rounding of the f32 run."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    op, pre, rhs, np_, w_row = _tiny_band()
+    top = t_fp.BandOperator(
+        cover=torch.as_tensor(
+            t_bp._window_cover(op["win_off"], np_, w_row, 3).astype(np.int32)),
+        **{k: torch.as_tensor(v) for k, v in op.items()})
+    tpre = t_fp.FusedPrecond(*(None if a is None else torch.as_tensor(a)
+                               for a in pre))
+    rhs = torch.as_tensor(rhs)
+    z = torch.zeros_like(rhs)
+    st = t_fp.ChunkState(x=z, r=z, p=z, rt=rhs,
+                         it=torch.zeros(1, dtype=torch.int32),
+                         rz=torch.zeros(1),
+                         stop=torch.zeros(1, dtype=torch.int32),
+                         rr=(rhs * rhs).sum().reshape(1))
+    atol2 = (1e-12 * (rhs * rhs).sum()).reshape(1)
+    f32 = t_fp.band_fused_pcg_chunk_ref(top, tpre, rhs, st, atol2, 50, True,
+                                        8)
+    f64 = t_fp.band_fused_pcg_chunk_ref(
+        chip_smoke.as_float64(top), chip_smoke.as_float64(tpre),
+        rhs.double(), chip_smoke.as_float64(st), atol2.double(), 50, True, 8)
+    assert f64.x.dtype == f64.rt.dtype == torch.float64
+    assert (f64.it.dtype, int(f64.it)) == (torch.int32, int(f32.it))
+    assert _rel(f32.x, f64.x) < 1e-5
 
 
 def test_gate_takes_band_past_the_resident_budget(big, monkeypatch):

@@ -56,3 +56,21 @@ def test_launch_without_a_card_fails(tmp_path):
          "0"], capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_skewed_ranks_leave_the_group_together():
+    """One rank sleeps after its last all-reduce, before its result is
+    saved, while the other goes on to tear the group down: ``run_ranks``
+    returns both results, and no rank aborts ("terminate called")."""
+    code = (
+        "import sys; sys.path.insert(0, 'tests')\n"
+        "import torch_parallel_ranks as ranks\n"
+        "from toyslam_torch.parallel.launch import run_ranks\n"
+        "print(run_ranks(ranks.skewed_finish, 2, 'cpu', (1, 2.0)))\n")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "terminate called" not in proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == str(
+        [{"rank": r, "sum": [3.0] * 4} for r in range(2)])

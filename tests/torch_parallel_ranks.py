@@ -180,3 +180,18 @@ def partition3d_cases(mesh, graph, cfg_kw, cfg64_kw, gn_kw):
     out["gn"]["digest"] += _digest(out["gn"]["poses"])
     out["launches"] = _launches()
     return out
+
+
+def skewed_finish(mesh, late_rank, sleep_s):
+    """One all-reduce, then ``late_rank`` sleeps before it returns (and so
+    before its result is saved), while the other ranks go on to leave the
+    group: ``tests/test_torch_parallel_launch.py``'s skewed teardown."""
+    import time
+
+    import torch.distributed as dist
+
+    t = torch.full((4,), float(mesh.rank + 1))
+    dist.all_reduce(t, group=mesh.group)
+    if mesh.rank == late_rank:
+        time.sleep(sleep_s)
+    return {"rank": mesh.rank, "sum": t.tolist()}

@@ -38,14 +38,14 @@ def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def _device(args):
-    """The torch device of ``--device``, or None (after a message on
+def resolve_device(name: str):
+    """The torch device of ``--device name``, or None (after a message on
     stderr) when it asks for a CUDA device and there is none."""
     import torch
 
-    device = torch.device(args.device)
+    device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
-        print(f"--device {args.device}: no CUDA device", file=sys.stderr)
+        print(f"--device {name}: no CUDA device", file=sys.stderr)
         return None
     return device
 
@@ -178,7 +178,7 @@ def cmd_run(args) -> int:
     from toyslam_torch.optimizer import GaussNewton
     from toyslam_torch.sim import frontend
 
-    device = _device(args)
+    device = resolve_device(args.device)
     if device is None:
         return 2
     cfg = SlamConfig(
@@ -303,7 +303,7 @@ def cmd_ba3d(args) -> int:
     from toyslam_torch.optimizer import GaussNewton
     from toyslam_torch.sim import synthetic3d
 
-    device = _device(args)
+    device = resolve_device(args.device)
     if device is None:
         return 2
     graph, poses_gt, _ = synthetic3d.make_ba_problem(
@@ -364,7 +364,7 @@ def cmd_serve(args) -> int:
         _log(f"native graph server (built-in CPU optimizer) on port "
              f"{args.port}")
     else:
-        device = _device(args)
+        device = resolve_device(args.device)
         if device is None:
             return 2
         server = PyGraphServer(

@@ -51,6 +51,8 @@ def _rank_main(rank, fn, procs, device, init_method, out_dir, args):
     # ends the other ranks (tearing the group down under them aborts)
     result = fn(make_mesh(device=device), *args)
     torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    # no rank tears the group down while a peer is still in a collective
+    dist.barrier()
     dist.destroy_process_group()
 
 

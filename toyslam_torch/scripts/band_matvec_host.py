@@ -28,8 +28,8 @@ import time
 import numpy as np
 import torch
 
+from toyslam_torch.bench import card
 from toyslam_torch.ops import band_matvec as bmv
-from toyslam_torch.scripts.exp_band_kernel import card
 
 NP, W, B = 10240, 64, 256
 

@@ -23,12 +23,12 @@ from __future__ import annotations
 
 import argparse
 import statistics
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
+from toyslam_torch.bench import card
 from toyslam_torch.ops.band_matvec import DL, DP, bound, slab_band_matvec
 
 NP = 10240
@@ -58,15 +58,6 @@ def oracle(slab, x, np_, W, B):
                         sb[w, a * DL + b] * t[b]
                     )
     return wacc[:, :np_]
-
-
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def matvec_ms(x, slab, W, B, reps=REPS, rounds=ROUNDS) -> list[float]:
