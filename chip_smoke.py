@@ -11,7 +11,9 @@ Run from the root of a checkout.  Phases, each of which must pass:
 2. the resident kernel (B1) vs plain PyTorch on the card: one chunk launch
    from the same state at (dp=3, Np=192, Mw=768, L=8), the same with L=0,
    the same with a coarse level (nc=3), at Np=2048 and at multi-loop-1k's
-   Np=1088 (L=11), each a fresh and a carried chunk — ``it`` and ``stop``
+   Np=1088 (L=11, and with a coarse level nc=17 at L=11 and at L=0: the
+   bench_fused entry point's coarse variants), each a fresh and a carried
+   chunk — ``it`` and ``stop``
    equal, x within 1e-4 of max|x|, r_true and rr within 1e-4 of max|rhs|
    and ||rhs||^2, and a second launch from the same state giving the same
    bits (see compare_chunks) — and both timed;
@@ -75,7 +77,8 @@ Run from the root of a checkout.  Phases, each of which must pass:
 17. B2 on the grid path: timed on the 10k row's own operands (coarse level
    nc=320) against its plain version and its bound, with its per-phase
    split, and held against its plain version on a seeded system of that
-   layout and shapes (fresh, carried, rerun bits);
+   layout and shapes (fresh, carried, rerun bits); the same at a chunk of
+   16 (the plateau-10k rows' chunk);
 18. the data of the band-vs-grid cost model (line ``grid_gate_fit``): the
    band operator's build, B2's cost per trip and the plain grid loop's per
    iteration at three layouts, beside the model's prediction;
@@ -104,6 +107,8 @@ Run from the root of a checkout.  Phases, each of which must pass:
    GN-iter/s, and B2 at that layout timed against its plain version and
    its bound with its per-phase split (line ``band100k_phase_split``) and
    held against its plain version on a seeded system of the same shapes;
+   the same (timed, bound, held) at chunks of 10 and 20 (exp_band100k's
+   cap20 and cap40 rows);
 23. the JAX package's plateau-100k-revisit-incr-init row
    (scripts/bench_plateau.py::run_100k_incr, without its chaining): the
    default-noise 100k graph put inside the Gauss-Newton basin by
@@ -155,6 +160,19 @@ Run from the root of a checkout.  Phases, each of which must pass:
    L=11, U from L2): the operator within 1e-5 and the chunked solve within
    1e-3 of the plain version's, one chunk timed against its plain version
    and its bound.
+30. ``scale_entry``: the port's scale entry points in process, each row
+   held to its gate and its launches: ``python -m
+   toyslam_torch.scripts.bench_plateau 10k`` (plateau-10k and
+   plateau-10k-revisit at full depth through B2), ``bench_huge --rounds
+   1`` (100k poses x 100k landmarks at full width, the plain grid loop),
+   ``exp_band100k``'s cap20 and cap40 rows on phase 22's graph (B2 at
+   chunks 10 and 20), ``bench_fused --reps 1 --rounds 1`` (both workloads,
+   all five variants, B1 with and without the coarse level),
+   ``exp_ba512``'s fused row (B2 at dp=6) and ``measure_native_baseline
+   --rounds 1``; then B1 with the coarse level (nc=3 at Np=192, nc=17 at
+   Np=1088, L=8/11 and L=0) on the fused rows' own GN-iteration-0 systems:
+   the operator within 1e-5, the solve within 1e-3, one chunk timed
+   against its plain version and its bound.
 Each of phases 24-27 prints a ``dist_timing`` line (GN-iter/s at 4 and 1
 ranks beside the single-device plain loop, ms per collective) with the
 card's name and power limit: ranks that share one card take turns on it,
@@ -179,7 +197,9 @@ bound_ms, bound_by, library_ms; the same for B1 and B2 at dp=6, for B2 on
 the grid path, at 100k and on the incrementally initialised 100k graph,
 for B1 on the serving path at both request sizes and at multi-loop-1k's
 Np=1088, with the launches of each benchmark entry point's row under
-``bench``, and for B3 at each of its five shapes); the last line is
+``bench`` and of each scale entry point's row under ``scale_entry`` with
+the new shapes' times, and for B3 at each of its five shapes); the last
+line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device the script exits non-zero and prints no result.
 """
@@ -546,6 +566,8 @@ def phase_kernels(device):
         ("Np192_Mw768_L8_coarse3", 192, 768, 8, 3, 1e-2),
         ("Np2048_Mw768_L11", 2048, 768, 11, 0, 1e-1),
         ("Np1088_Mw768_L11", 1088, 768, 11, 0, 1e-1),
+        ("Np1088_Mw768_L11_coarse17", 1088, 768, 11, 17, 1e-1),
+        ("Np1088_Mw768_jacobi_coarse17", 1088, 768, 0, 17, 1e-1),
     ]
     out, times = [], {}
     for i, (name, np_, mw, nl, nc, eps) in enumerate(cases):
@@ -1747,6 +1769,9 @@ def phase_grid_kernel(graphs):
     times = chunk_times(op, pre, rhs2, chunk, kernel="band_fused_pcg_chunk",
                         reps=10)
     bound = chunk_bound(op, pre, rhs2, chunk)
+    chunk16 = {"chunk_ms": chunk_times(op, pre, rhs2, 16, reps=10,
+                                       kernel="band_fused_pcg_chunk"),
+               "bound": chunk_bound(op, pre, rhs2, 16)}
     split = band_phase_split(op, pre, rhs2, chunk,
                              statistics.mean(times["kernel"]))
     log("grid_band_phase_split " + json.dumps(split))
@@ -1762,20 +1787,25 @@ def phase_grid_kernel(graphs):
         (shapes["tiles"], shapes["nc"])
     out = compare_chunks("grid10k_L14_coarse320", sop, spre, srhs,
                          chunk=chunk, kernel="band_fused_pcg_chunk")
+    # the plateau-10k rows' chunk (the default 16) on the same layout
+    out += compare_chunks("grid10k_L14_coarse320_chunk16", sop, spre, srhs,
+                          chunk=16, kernel="band_fused_pcg_chunk")
     del sop, spre, srhs
     torch.cuda.empty_cache()
     for r in out:
         log("grid_band_kernel_check " + json.dumps(r))
     log("grid_band_kernel " + json.dumps({"shapes": shapes,
                                           "chunk_ms": times,
-                                          "bound": bound}))
+                                          "bound": bound,
+                                          "chunk16": chunk16}))
     bad = [r for r in out if not r["ok"]]
     if bad:
         raise AssertionError(
             f"band kernel disagrees with plain version on the grid layout: "
             f"{bad}")
     return {"max_abs": max(r["max_abs_err"] for r in out),
-            "chunk_ms": times, "bound": bound, "split": split}
+            "chunk_ms": times, "bound": bound, "split": split,
+            "chunk16": chunk16}
 
 
 def phase_grid_gate_fit(graphs, device):
@@ -2291,14 +2321,20 @@ def phase_band100k(device):
     times = chunk_times(op, pre, rhs2, chunk, kernel="band_fused_pcg_chunk",
                         reps=5)
     bound = chunk_bound(op, pre, rhs2, chunk)
+    # exp_band100k's budget scan: chunk 10 (cap20) and 20 (cap40)
+    by_chunk = {c: {"chunk_ms": chunk_times(op, pre, rhs2, c, reps=3,
+                                            kernel="band_fused_pcg_chunk"),
+                    "bound": chunk_bound(op, pre, rhs2, c)}
+                for c in (10, 20)}
     split = band_phase_split(op, pre, rhs2, chunk,
                              statistics.mean(times["kernel"]))
     log("band100k_phase_split " + json.dumps(split))
     log("band100k_kernel " + json.dumps({"shapes": shapes, "chunk_ms": times,
-                                         "bound": bound}))
+                                         "bound": bound,
+                                         "by_chunk": by_chunk}))
     win_off = band.win_off.cpu().numpy()
     w_row, b_dl, n_wide = band.w_row, band.chunk_b * 2, band.n_wide
-    del ops, op, pre, rhs2, gdev, res, graph
+    del ops, op, pre, rhs2, gdev, res
     torch.cuda.empty_cache()
     sop, spre, srhs = synthetic_band_system(
         n_pad, win_off, w_row, b_dl, 2 * n_wide, 0, cfg.pcg_coarse_group,
@@ -2307,6 +2343,10 @@ def phase_band100k(device):
         (shapes["tiles"], shapes["nc"])
     out = compare_chunks("grid100k_jacobi_coarse784", sop, spre, srhs,
                          chunk=chunk, kernel="band_fused_pcg_chunk")
+    for c in by_chunk:
+        out += compare_chunks(f"grid100k_jacobi_coarse784_chunk{c}", sop,
+                              spre, srhs, chunk=c,
+                              kernel="band_fused_pcg_chunk")
     del sop, spre, srhs
     torch.cuda.empty_cache()
     for r in out:
@@ -2315,8 +2355,10 @@ def phase_band100k(device):
     if bad:
         raise AssertionError(
             f"band kernel disagrees with plain version at 100k: {bad}")
+    # the laid-out host graph, for exp_band100k's row in phase scale_entry
     return {"path": m, "max_abs": max(r["max_abs_err"] for r in out),
-            "chunk_ms": times, "bound": bound, "split": split}
+            "chunk_ms": times, "bound": bound, "split": split,
+            "by_chunk": by_chunk, "graph": (graph, poses_gt, None)}
 
 
 INCR100K_JAX = {"chi2_dead_reckoning": 5302700032.0,
@@ -3136,8 +3178,9 @@ def phase_slab_band_matvec(device):
 
 
 def entry_lines(main_fn, argv):
-    """An entry point's ``main(argv)`` in process: its exit code and the
-    JSON lines it printed."""
+    """An entry point's ``main(argv)`` (or any function of one argument) in
+    process: what it returns (an exit code) and the JSON lines it
+    printed."""
     import contextlib
     import io
 
@@ -3148,30 +3191,27 @@ def entry_lines(main_fn, argv):
                   if line.startswith("{")]
 
 
-def multi_loop_b1(device):
-    """B1 at multi-loop-1k's shape on that row's GN-iteration-0 system: the
-    operator (the ``r_true = rhs - S x`` of one kernel chunk against the
-    plain operator on the same x, within 1e-5 of max|S x|), the solve (the
-    chunked PCG through the kernel against the same loop through the plain
-    version, at the row's tolerance and cap, within 1e-3 of max|x|), and
-    one chunk timed against its plain version and its bound.  The real
-    system's gauge prior makes r_true an f32 difference x 1e6 (phase 2 holds
-    the chunk itself on a seeded system), so these are B1's acceptance
-    bounds on the solve, not the chunk bounds of phase 2."""
+def b1_on_system(device, cfg, graph):
+    """B1 on a path's own GN-iteration-0 system (``cfg`` on ``graph``, laid
+    out here): the operator (the ``r_true = rhs - S x`` of one kernel chunk
+    against the plain operator on the same x, within 1e-5 of max|S x|), the
+    solve (the chunked PCG through the kernel against the same loop through
+    the plain version, at the config's tolerance and cap, within 1e-3 of
+    max|x|), and one chunk timed against its plain version and its bound.
+    The real system's gauge prior makes r_true an f32 difference x 1e6
+    (phase 2 holds the chunk itself on seeded systems), so these are B1's
+    acceptance bounds on the solve, not the chunk bounds of phase 2."""
     import torch
 
     from toyslam_torch.ops import fused_pcg as fp
     from toyslam_torch.optimizer import GaussNewton
-    from toyslam_torch.scripts import bench_suite
 
-    name = "multi-loop-1k"
-    gn = GaussNewton(bench_suite.optimizer_config(name))
-    gdev = gn._prepare(bench_suite.row_graph(name)[0]).to(device)
+    gn = GaussNewton(cfg)
+    gdev = gn._prepare(graph).to(device)
     state, layers = layer_system(gn, gdev)
     for _, build in layers[:4]:       # assemble ... build_fused_operator
         build()
     op, pre, rhs = state["op"], state["pre"], state["rhs2"]
-    cfg = gn.config
     chunk = cfg.pcg_fused_chunk
     atol2 = ((cfg.pcg_tol ** 2) * (rhs * rhs).sum()).reshape(1)
     ker = fp.fused_pcg_chunk(op, pre, rhs, fresh_state(rhs), atol2,
@@ -3182,18 +3222,32 @@ def multi_loop_b1(device):
     xk = fp._chunked_pcg(fp.fused_pcg_chunk, *args)
     xr = fp._chunked_pcg(fp.fused_pcg_chunk_ref, *args)
     torch.cuda.synchronize()
-    m = {"shapes": {"np": rhs.shape[1], "mw": op.u.shape[-1],
-                    "pcr_levels": pre.alphas.shape[0]},
-         "operator_rel": float((ker.rt - (rhs - sx)).abs().max()
-                               / sx.abs().max()),
-         "solve_rel": float((xk.x - xr.x).abs().max() / xr.x.abs().max()),
-         "solve_max_abs_err": float((xk.x - xr.x).abs().max()),
-         "pcg_iters": [int(xk.iterations), int(xr.iterations)],
-         "chunk_ms": chunk_times(op, pre, rhs, chunk),
-         "bound": chunk_bound(op, pre, rhs, chunk),
-         "u_bytes": op.u.numel() * 4,
-         "resident_u_in_smem": fp.b1_schedule(
-             device.index or 0, 3, rhs.shape[1], op.u.shape[-1], 0).resident}
+    return {"shapes": {"np": rhs.shape[1], "mw": op.u.shape[-1],
+                       "pcr_levels": pre.alphas.shape[0],
+                       "nc": 0 if pre.cinv is None
+                       else pre.cinv.shape[-1]},
+            "operator_rel": float((ker.rt - (rhs - sx)).abs().max()
+                                  / sx.abs().max()),
+            "solve_rel": float((xk.x - xr.x).abs().max()
+                               / xr.x.abs().max()),
+            "solve_max_abs_err": float((xk.x - xr.x).abs().max()),
+            "pcg_iters": [int(xk.iterations), int(xr.iterations)],
+            "chunk_ms": chunk_times(op, pre, rhs, chunk),
+            "bound": chunk_bound(op, pre, rhs, chunk),
+            "u_bytes": op.u.numel() * 4,
+            "resident_u_in_smem": fp.b1_schedule(
+                device.index or 0, 3, rhs.shape[1], op.u.shape[-1],
+                0 if pre.cinv is None else pre.cinv.shape[-1]).resident}
+
+
+def multi_loop_b1(device):
+    """B1 at multi-loop-1k's shape on that row's GN-iteration-0 system
+    (:func:`b1_on_system`)."""
+    from toyslam_torch.scripts import bench_suite
+
+    name = "multi-loop-1k"
+    m = b1_on_system(device, bench_suite.optimizer_config(name),
+                     bench_suite.row_graph(name)[0])
     log("multi_loop_b1 " + json.dumps(m))
     return m
 
@@ -3233,11 +3287,118 @@ def phase_bench(device, smi):
             rows[n]["solver_mode"] == "band"
             for n in ("large-sparse-10k", "large-sparse-10k-revisit")),
         "multi-loop B1 shape": ml["shapes"] == {
-            "np": 1088, "mw": 768, "pcr_levels": 11},
+            "np": 1088, "mw": 768, "pcr_levels": 11, "nc": 0},
         "multi-loop operator": ml["operator_rel"] <= 1e-5,
         "multi-loop solve": ml["solve_rel"] <= 1e-3,
     })
     return {"headline": head, "rows": rows, "multi_loop": ml}
+
+
+def phase_scale_entry(device, state):
+    """Phase 30: the port's scale entry points in process, each held to its
+    gate and its launches.  ``bench_plateau 10k`` at full depth (the two
+    10k rows to their plateau through B2); ``bench_huge --rounds 1``
+    (100k x 100k at full width: the plain grid loop); ``exp_band100k``'s
+    cap20 and cap40 rows (B2 at chunks 10 and 20) on phase band100k's graph;
+    ``bench_fused --reps 1 --rounds 1`` (both workloads, all five variants:
+    B1 with and without the coarse level); ``exp_ba512``'s fused row (B2
+    at dp=6); ``measure_native_baseline --rounds 1``.  Then B1 with the
+    coarse level on the fused rows' own GN-iteration-0 systems at Np=192
+    and Np=1088 (:func:`b1_on_system`)."""
+    from toyslam_torch.scripts import (
+        bench_fused,
+        bench_huge,
+        bench_plateau,
+        bench_suite,
+        exp_ba512,
+        exp_band100k,
+        measure_native_baseline,
+    )
+
+    out, checks = {}, {}
+
+    def b_launches(row, kernel):
+        return row["kernel_launches"][kernel]
+
+    code, rows = entry_lines(bench_plateau.main, ["10k"])
+    for r in rows:
+        log("scale_plateau " + json.dumps(r))
+    out["plateau"] = {r["config"]: r for r in rows}
+    checks["plateau exit 0"] = code == 0
+    checks["plateau rows"] = tuple(out["plateau"]) == bench_plateau.SUBSETS[
+        "10k"]
+    checks["plateau through B2"] = all(
+        r["gate"]["ok"] and r["solver_mode"] == "band"
+        and b_launches(r, "band_fused_pcg_chunk") > 0 for r in rows)
+
+    code, rows = entry_lines(bench_huge.main, ["--rounds", "1"])
+    (huge,) = rows
+    log("scale_huge " + json.dumps(huge))
+    out["huge"] = huge
+    checks["huge exit 0 and gate"] = code == 0 and huge["gate"]["ok"]
+
+    names = ("band-100k-jacobi-cg128-cap20", "band-100k-jacobi-cg128-cap40")
+    summary, rows = entry_lines(
+        lambda _: exp_band100k.run(device, names, reps=1, rounds=1,
+                                   graph=state["band100k"]["graph"]), None)
+    for r in rows:
+        log("scale_band100k " + json.dumps(r))
+    out["band100k"] = {r["config"]: r for r in rows if "config" in r}
+    checks["band100k rows through B2"] = summary["ok"] and tuple(
+        out["band100k"]) == names and all(
+        b_launches(r, "band_fused_pcg_chunk") > 0
+        for r in out["band100k"].values())
+
+    code, rows = entry_lines(bench_fused.main, ["--reps", "1", "--rounds",
+                                                "1"])
+    for r in rows:
+        log("scale_fused " + json.dumps(r))
+    out["fused"] = {f"{r['config']}/{r['solver']}": r for r in rows}
+    checks["fused exit 0"] = code == 0
+    checks["fused every variant"] = len(rows) == 2 * len(bench_fused.VARIANTS)
+    checks["fused variants through B1"] = all(
+        b_launches(r, "fused_pcg_chunk") > 0 for r in rows
+        if "-fused-" in r["solver"])
+
+    code, rows = entry_lines(exp_ba512.main, [
+        "--rows", "ba3d-512x4096-fused", "--reps", "1", "--rounds", "1"])
+    for r in rows:
+        log("scale_ba512 " + json.dumps(r))
+    (ba,) = [r for r in rows if "config" in r]
+    out["ba512"] = ba
+    checks["ba512 fused row through B2"] = code == 0 and ba["gate"]["ok"] \
+        and b_launches(ba, "band_fused_pcg_chunk") > 0
+
+    code, rows = entry_lines(measure_native_baseline.main, ["--rounds", "1"])
+    (native,) = [r["native_cpu"] for r in rows if "native_cpu" in r]
+    log("scale_native " + json.dumps(native))
+    out["native"] = native
+    checks["native exit 0"] = code == 0
+
+    # B1 with the coarse level on the fused rows' own systems
+    coarse = {}
+    for workload in bench_fused.WORKLOADS:
+        graph = bench_suite.row_graph(workload)[0]
+        for variant in ("schur-fused-tridiag+coarse",
+                        "schur-fused-jacobi+coarse"):
+            m = b1_on_system(device, bench_fused.optimizer_config(
+                workload, variant), graph)
+            m["launches"] = b_launches(out["fused"][f"{workload}/{variant}"],
+                                       "fused_pcg_chunk")
+            log("scale_b1_coarse " + json.dumps(
+                dict(m, workload=workload, variant=variant)))
+            coarse[f"{workload}/{variant}"] = m
+    out["b1_coarse"] = coarse
+    checks["B1 coarse shapes"] = sorted(
+        (m["shapes"]["np"], m["shapes"]["nc"]) for m in coarse.values()) == [
+        (192, 3), (192, 3), (1088, 17), (1088, 17)]
+    checks["B1 coarse operator"] = all(m["operator_rel"] <= 1e-5
+                                       for m in coarse.values())
+    checks["B1 coarse solve"] = all(m["solve_rel"] <= 1e-3
+                                    for m in coarse.values())
+    out["checks"] = checks
+    failed_checks("scale entry points", checks)
+    return out
 
 
 def main(argv=None) -> int:
@@ -3345,6 +3506,8 @@ def main(argv=None) -> int:
         ("slab_band_matvec", lambda: state.update(
             slab=phase_slab_band_matvec(device))),
         ("bench", lambda: state.update(bench=phase_bench(device, smi))),
+        ("scale_entry", lambda: state.update(
+            scale_entry=phase_scale_entry(device, state))),
     ]
     extra = {"incr100k_diag": lambda: phase_incr100k_diag(device)}
     if only is not None:
@@ -3504,6 +3667,52 @@ def main(argv=None) -> int:
                      for c in bench_launches.values()),
         launches_by_path={k: c["band_fused_pcg_chunk"]
                           for k, c in bench_launches.items()})
+    # B1 and B2 on the scale entry points (phase 30): the launches of each
+    # row's first optimize; the new shapes timed and bound on their rows'
+    # own GN-iteration-0 operands: B1 with the coarse level (Np=192 nc=3,
+    # Np=1088 nc=17), B2 on the 10k grid layout at the plateau rows' chunk
+    # 16 (phase grid_kernel) and at 100k at chunks 10 and 20 (phase
+    # band100k)
+    se = state["scale_entry"]
+    se_rows = {**{f"plateau/{k}": r for k, r in se["plateau"].items()},
+               "huge-100k": se["huge"],
+               **{f"band100k/{k}": r for k, r in se["band100k"].items()},
+               **{f"fused/{k}": r for k, r in se["fused"].items()},
+               "ba512/fused": se["ba512"]}
+
+    def timed(ms, bound, launches):
+        return dict(launches=launches,
+                    ms=statistics.mean(ms["kernel"]),
+                    plain_ms=statistics.mean(ms["plain"]),
+                    bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                    library_ms=None)
+
+    b1["scale_entry"] = dict(
+        launches=sum(r["kernel_launches"]["fused_pcg_chunk"]
+                     for r in se_rows.values()),
+        launches_by_path={k: r["kernel_launches"]["fused_pcg_chunk"]
+                          for k, r in se_rows.items()},
+        coarse={k: dict(timed(m["chunk_ms"], m["bound"], m["launches"]),
+                        shapes=m["shapes"], max_abs_err=m["solve_max_abs_err"],
+                        operator_rel=m["operator_rel"],
+                        solve_rel=m["solve_rel"])
+                for k, m in se["b1_coarse"].items()})
+    gk16 = state["grid_kernel"]["chunk16"]
+    b2["scale_entry"] = dict(
+        launches=sum(r["kernel_launches"]["band_fused_pcg_chunk"]
+                     for r in se_rows.values()),
+        launches_by_path={k: r["kernel_launches"]["band_fused_pcg_chunk"]
+                          for k, r in se_rows.items()},
+        plateau10k_chunk16=dict(timed(
+            gk16["chunk_ms"], gk16["bound"],
+            sum(r["kernel_launches"]["band_fused_pcg_chunk"]
+                for r in se["plateau"].values())),
+            max_abs_err=state["grid_kernel"]["max_abs"]),
+        **{f"grid100k_chunk{c}": dict(timed(
+            bk100["by_chunk"][c]["chunk_ms"], bk100["by_chunk"][c]["bound"],
+            se["band100k"][f"band-100k-jacobi-cg128-cap{2 * c}"][
+                "kernel_launches"]["band_fused_pcg_chunk"]),
+            max_abs_err=bk100["max_abs"]) for c in (10, 20)})
     # B3 on its entry point's run; headline numbers at W=576, B=512 (the
     # window the JAX script's docstring gives for the 10k workload), every
     # shape under by_shape.  library_ms: no single PyTorch call computes

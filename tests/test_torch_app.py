@@ -81,6 +81,10 @@ def test_port_imports_no_jax():
         "assert all('toyslam_torch.' + m in sys.modules for m in b3)\n"
         "bench = ['bench', 'scripts.bench_suite']\n"
         "assert all('toyslam_torch.' + m in sys.modules for m in bench)\n"
+        "scale = ['scripts.bench_plateau', 'scripts.exp_band100k', "
+        "'scripts.bench_huge', 'scripts.bench_fused', 'scripts.exp_ba512', "
+        "'scripts.measure_native_baseline']\n"
+        "assert all('toyslam_torch.' + m in sys.modules for m in scale)\n"
         "print(len([k for k in sys.modules if k.startswith('toyslam_torch')]))\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -137,3 +137,34 @@ def test_builder_pads_to_buckets():
     assert g.landmarks[0].tolist() == [1.0, 2.0]
     assert g.lm_edges.pose.dtype == torch.int64
     assert g.lm_edges.mask.tolist() == [1.0] + [0.0] * 7
+
+
+@pytest.mark.parametrize("shape", [(21, 21), (8, 13)])
+def test_environment_grid_and_points(shape):
+    (tg, ts), (jg, js) = (t_env.load_environment_grid(shape),
+                          j_env.load_environment_grid(shape))
+    assert ts == js and tg.dtype == jg.dtype
+    np.testing.assert_allclose(tg, jg, rtol=0, atol=1e-6)
+    for cell, radius in ((1.0, 0.25), (0.5, 0.1)):
+        (tp, tr), (jp, jr) = (t_env.grid_to_points(tg, cell, radius),
+                              j_env.grid_to_points(jg, cell, radius))
+        assert tr == jr and tp.dtype == jp.dtype
+        np.testing.assert_allclose(tp, jp, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_integrate_matches_jax(seed):
+    import jax.numpy as jnp
+
+    # a short tape of small steps keeps |x| below 4, where float32 spacing
+    # is below the 1e-6 tolerance
+    rng = np.random.default_rng(seed)
+    start = np.array([rng.uniform(-1, 1), rng.uniform(-1, 1),
+                      rng.uniform(-3, 3)], np.float32)
+    controls = rng.normal(scale=0.15, size=(16, 3)).astype(np.float32)
+    got = t_traj.integrate(torch.from_numpy(start), torch.from_numpy(controls))
+    want = np.asarray(j_traj.integrate(jnp.asarray(start),
+                                       jnp.asarray(controls)))
+    assert tuple(got.shape) == want.shape == (17, 3)
+    assert np.abs(want[:, :2]).max() < 4
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)

@@ -13,6 +13,20 @@ def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
     return torch.atan2(torch.sin(theta), torch.cos(theta))
 
 
+def rotation(theta: torch.Tensor) -> torch.Tensor:
+    """``[..., 2, 2]`` rotation matrix for ``[...]`` angles."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack(
+        [torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2
+    )
+
+
+def identity(batch_shape: tuple = (), dtype=torch.float32,
+             device=None) -> torch.Tensor:
+    """The identity pose, ``[*batch_shape, 3]`` zeros."""
+    return torch.zeros(batch_shape + (3,), dtype=dtype, device=device)
+
+
 def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Group product ``a ⊕ b``."""
     ca, sa = torch.cos(a[..., 2]), torch.sin(a[..., 2])
@@ -28,6 +42,14 @@ def inverse(a: torch.Tensor) -> torch.Tensor:
     x = -(ca * a[..., 0] + sa * a[..., 1])
     y = -(-sa * a[..., 0] + ca * a[..., 1])
     return torch.stack([x, y, -a[..., 2]], dim=-1)
+
+
+def transform_point(pose: torch.Tensor, pt: torch.Tensor) -> torch.Tensor:
+    """World coordinates of a body-frame point."""
+    c, s = torch.cos(pose[..., 2]), torch.sin(pose[..., 2])
+    x = pose[..., 0] + c * pt[..., 0] - s * pt[..., 1]
+    y = pose[..., 1] + s * pt[..., 0] + c * pt[..., 1]
+    return torch.stack([x, y], dim=-1)
 
 
 def inv_transform_point(pose: torch.Tensor, pt: torch.Tensor) -> torch.Tensor:
@@ -51,6 +73,25 @@ def retract(pose: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     )
 
 
+def to_matrix(pose: torch.Tensor) -> torch.Tensor:
+    """``[..., 3, 3]`` homogeneous matrix."""
+    c, s = torch.cos(pose[..., 2]), torch.sin(pose[..., 2])
+    z = torch.zeros_like(c)
+    o = torch.ones_like(c)
+    rows = [
+        torch.stack([c, -s, pose[..., 0]], dim=-1),
+        torch.stack([s, c, pose[..., 1]], dim=-1),
+        torch.stack([z, z, o], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def from_matrix(mat: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`to_matrix` (theta via atan2)."""
+    theta = torch.atan2(mat[..., 1, 0], mat[..., 0, 0])
+    return torch.stack([mat[..., 0, 2], mat[..., 1, 2], theta], dim=-1)
+
+
 def relative(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a^-1 ⊕ b`` — the motion taking frame ``a`` to frame ``b``."""
     return compose(inverse(a), b)
@@ -65,3 +106,10 @@ def radial_to_euclidean(meas: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def euclidean_to_radial(pt: torch.Tensor) -> torch.Tensor:
+    """Body-frame (x, y) -> (range, bearing)."""
+    rng = torch.sqrt(pt[..., 0] ** 2 + pt[..., 1] ** 2)
+    ang = torch.atan2(pt[..., 1], pt[..., 0])
+    return torch.stack([rng, ang], dim=-1)

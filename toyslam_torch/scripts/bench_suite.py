@@ -43,6 +43,7 @@ written unless ``--out`` is given.  ``--device cuda`` (the default) exits
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import sys
@@ -245,30 +246,50 @@ def gate(name: str, row: dict, chi2: np.ndarray, on_card: bool) -> dict:
     return ok
 
 
-def bench_row(name: str, device: torch.device, rounds: int,
-              reps: int | None = None) -> dict:
-    """One row: its JSON object (printed)."""
+def capped(cfg, iterations: int | None):
+    """``cfg`` with its GN iterations capped at ``iterations`` (None: as
+    it is); the scale entry points' ``--iterations``."""
+    if iterations is None:
+        return cfg
+    return dataclasses.replace(cfg, iterations=min(cfg.iterations,
+                                                   iterations))
+
+
+def solver_mode(cfg, gdev) -> str | None:
+    """The kernel route the gate takes for a laid-out graph: "resident"
+    (B1), "band" (B2) or None (the plain PCG loop, or the dense solve)."""
     from toyslam_torch.ops import fused_pcg as fp
     from toyslam_torch.ops import grid_schur
+
+    if cfg.solver == "dense":
+        return None
+    if cfg.solver == "schur_grid":
+        return "band" if grid_schur._band_mode(cfg, gdev.plan,
+                                               gdev.num_poses) else None
+    return fp.fused_mode(cfg, gdev)
+
+
+def bench_one(name: str, graph, gt, cfg, n_real: int, device: torch.device,
+              reps: int, rounds: int, flops: float | None = None,
+              bytes_: float | None = None, gdev=None):
+    """One benchmark row (the JAX suite's ``bench_one``): the graph laid
+    out and moved to ``device`` once (or ``gdev``, laid out already), one
+    warm-up optimize whose kernel launches are counted, then ``rounds``
+    rounds of ``reps`` optimizes.  Returns the row (the JAX row's keys,
+    the SE(3) ATE and reprojection RMSE on a ``schur3d`` row, the FLOP/byte
+    model's rates where ``flops`` and ``bytes_`` are given) and the
+    warm-up's chi^2 per GN iteration."""
     from toyslam_torch.optimizer import GaussNewton
     from toyslam_torch.sim import frontend, synthetic3d
 
-    graph, gt, n = row_graph(name)
-    cfg = optimizer_config(name)
-    ba = name.startswith("ba3d-")
-    if reps is None:
-        reps = BA_REPS if ba else REPS[name]
     gn = GaussNewton(cfg)
-    gdev = gn._prepare(graph).to(device)
-    if cfg.solver == "schur_grid":
-        mode = "band" if grid_schur._band_mode(cfg, gdev.plan,
-                                               gdev.num_poses) else None
-    else:
-        mode = fp.fused_mode(cfg, gdev)
+    if gdev is None:
+        gdev = gn._prepare(graph).to(device)
+    mode = solver_mode(cfg, gdev)
 
     reset_launches()
     res = gn.optimize(gdev)
-    est = res.graph.poses[:n].cpu().numpy()       # fence
+    est = res.graph.poses[:n_real].cpu().numpy()       # fence
     counts = launches()
     iters = res.iterations_run
     times = timed_rounds(lambda: gn.optimize(gdev), device, rounds, reps)
@@ -277,21 +298,21 @@ def bench_row(name: str, device: torch.device, rounds: int,
     chi2 = errs[~np.isnan(errs)]
     row = {
         "config": name,
-        "poses": n,
+        "poses": n_real,
         "landmarks": int(graph.lm_mask.sum()),
         "lm_edges": int(graph.lm_edges.mask.sum()),
         **rate(iters, times),
         "iters_run": iters,
     }
-    if ba:
+    if cfg.solver == "schur3d":
         row["ate_rmse"] = synthetic3d.pose_ate_rmse(est, gt)
         row["ate_initial"] = synthetic3d.pose_ate_rmse(
-            graph.poses[:n].numpy(), gt)
+            graph.poses[:n_real].numpy(), gt)
         row["reproj_rmse_px"] = _reproj_rmse(res.graph)
     else:
         row["ate_rmse"] = frontend.ate_rmse(est, gt)
         row["ate_dead_reckoning"] = frontend.ate_rmse(
-            graph.poses[:n].numpy(), gt)
+            graph.poses[:n_real].numpy(), gt)
     row.update(
         chi2_first=float(chi2[0]) if chi2.size else None,
         chi2_last=float(chi2[-1]) if chi2.size else None,
@@ -301,11 +322,7 @@ def bench_row(name: str, device: torch.device, rounds: int,
         finite=bool(np.isfinite(est).all() and np.isfinite(chi2).all()),
         **device_fields(device),
     )
-    if name == "large-sparse-10k":
-        flops, bytes_ = flop_byte_model_10k(
-            graph.num_poses, graph.num_landmarks, graph.odom.count,
-            graph.lm_edges.count, pcg_iters=cfg.pcg_max_iters,
-            nc=graph.num_poses // cfg.pcg_coarse_group)
+    if flops:
         t_iter = row["wall_s"] / iters
         row.update(
             flops_per_gn_iter_model=flops,
@@ -315,6 +332,24 @@ def bench_row(name: str, device: torch.device, rounds: int,
             achieved_gbps=bytes_ / t_iter / 1e9,
             hbm_peak_fraction=bytes_ / t_iter / H100_HBM_BYTES_S,
         )
+    return row, chi2
+
+
+def bench_row(name: str, device: torch.device, rounds: int,
+              reps: int | None = None) -> dict:
+    """One row: its JSON object (printed)."""
+    graph, gt, n = row_graph(name)
+    cfg = optimizer_config(name)
+    if reps is None:
+        reps = BA_REPS if name.startswith("ba3d-") else REPS[name]
+    flops = bytes_ = None
+    if name == "large-sparse-10k":
+        flops, bytes_ = flop_byte_model_10k(
+            graph.num_poses, graph.num_landmarks, graph.odom.count,
+            graph.lm_edges.count, pcg_iters=cfg.pcg_max_iters,
+            nc=graph.num_poses // cfg.pcg_coarse_group)
+    row, chi2 = bench_one(name, graph, gt, cfg, n, device, reps, rounds,
+                          flops, bytes_)
     checks = gate(name, row, chi2, device.type == "cuda")
     row["gate"] = {"checks": checks, "ok": all(checks.values())}
     print(json.dumps(row), flush=True)

@@ -2,7 +2,8 @@
 
 A rectangular outer wall, an inner L-shaped wall block and three
 free-standing obstacles — 422 points, each a circle of radius 0.25.  The
-same map as ``toyslam_tpu.sim.environment.load_environment``.
+same map as ``toyslam_tpu.sim.environment.load_environment``, and its
+occupancy-grid variant.
 """
 
 from __future__ import annotations
@@ -37,3 +38,26 @@ def load_environment(scale: float = 1.0) -> tuple[np.ndarray, float]:
     free = np.array([[10.0, 10.0], [10.0, 25.0], [22.0, 28.0]])
     pts = np.concatenate(segments + [free], axis=0) / scale
     return pts.astype(np.float32), 0.25 / scale
+
+
+def load_environment_grid(
+    shape: tuple[int, int] = (21, 21)
+) -> tuple[np.ndarray, tuple[int, ...]]:
+    """Occupancy-grid variant of the map: a border of occupied cells.
+    Returns ``(grid [H, W] float32, shape)``; 1.0 marks an occupied cell."""
+    grid = np.zeros(shape, np.float32)
+    grid[:, 0] = 1.0
+    grid[:, -1] = 1.0
+    grid[0, :] = 1.0
+    grid[-1, :] = 1.0
+    return grid, shape
+
+
+def grid_to_points(
+    grid: np.ndarray, cell: float = 1.0, radius: float = 0.25
+) -> tuple[np.ndarray, float]:
+    """Occupied grid cells as point obstacles, for the point-based LiDAR
+    simulator (``sim/lidar.py``)."""
+    ys, xs = np.nonzero(grid > 0.5)
+    pts = np.stack([xs, ys], axis=1).astype(np.float32) * cell
+    return pts, radius

@@ -1,8 +1,10 @@
-"""Scripted robot motion (host numpy, float64).
+"""Scripted robot motion.
 
 The robot follows a piecewise-constant control schedule keyed on the pose
-counter; trajectories are integrated sequentially in float64 so that the
-simulated problem is bit-identical to the JAX package's on every platform.
+counter; the simulation integrates trajectories sequentially in float64 on
+the host (``integrate_np``) so that the simulated problem is bit-identical
+to the JAX package's on every platform.  ``integrate`` composes a tape of
+tensors in their own dtype and device.
 """
 
 from __future__ import annotations
@@ -10,6 +12,9 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
+
+from toyslam_torch.ops import se2
 
 # (pose-id upper bound, forward step, turn degrees)
 _SCHEDULE = [
@@ -44,3 +49,13 @@ def integrate_np(start: np.ndarray, controls: np.ndarray) -> np.ndarray:
         th = np.arctan2(np.sin(th + dth), np.cos(th + dth))
         out[k + 1] = (x, y, th)
     return out
+
+
+def integrate(start: torch.Tensor, controls: torch.Tensor) -> torch.Tensor:
+    """Compose a control tape into a trajectory in the tensors' dtype and
+    on their device: ``[T+1, 3]`` poses (``integrate_np`` is the float64
+    host version the simulation uses)."""
+    out = [start]
+    for u in controls:
+        out.append(se2.compose(out[-1], u))
+    return torch.stack(out)
