@@ -35,8 +35,11 @@ Run from the root of a checkout.  Phases, each of which must pass:
    layout and shapes (tile stack [39, 2, 3, 512, 512], one wide landmark,
    L=14, coarse nc=64) and a small one (K=3, wide columns, L=0); B2 and
    its plain version timed on the scale path's own iteration-0 operands
-   and on the small system; B2's bound, its per-phase clock64 split and
-   the cost of one grid barrier alone (line ``band_phase_split``);
+   and on the small system; B2's bound (the stack read on every trip), its
+   plan, its per-phase clock64 split, the bytes a trip reads and the
+   stack's TB/s and the cost of one grid barrier alone (line
+   ``band_phase_split``); and every instantiation's registers and local
+   memory, which must be none (line ``band_kernel_attrs``);
 7. the scale path: ``make_large_problem(10_000, 10_000, 6, seed=0)`` and
    ``GaussNewton(...).optimize`` with the JAX package's band-10k-cg160
    config on the card through B2 (B1 launched no time), checked against
@@ -81,7 +84,8 @@ Run from the root of a checkout.  Phases, each of which must pass:
    16 (the plateau-10k rows' chunk);
 18. the data of the band-vs-grid cost model (line ``grid_gate_fit``): the
    band operator's build, B2's cost per trip and the plain grid loop's per
-   iteration at three layouts, beside the model's prediction;
+   iteration at three layouts, beside the model's prediction (the 100k
+   layout's points: phases 22 and 23);
 19. the serving path at full width, in this process: ``PyGraphServer`` and
    then ``native_server(backend="torch")`` on a free port with
    ``device="cuda"``; one ``GraphClient`` connection sends the 150-pose graph
@@ -104,11 +108,15 @@ Run from the root of a checkout.  Phases, each of which must pass:
    to its recorded chi^2 (``BAND100K_REF``: first at rtol 1e-4, final
    within 1 %, 60 PCG iterations in each of 10 GN iterations), with the
    gate's decision, ``band_device_bytes``, the host set-up seconds,
-   GN-iter/s, and B2 at that layout timed against its plain version and
-   its bound with its per-phase split (line ``band100k_phase_split``) and
-   held against its plain version on a seeded system of the same shapes;
-   the same (timed, bound, held) at chunks of 10 and 20 (exp_band100k's
-   cap20 and cap40 rows);
+   GN-iter/s beside the plain grid loop's (medians of 3 rounds),
+   ``auto``'s decision held to agree with them where they part by more
+   than 10 %, and B2 at that layout timed against its plain version
+   and its bound with its per-phase split, plan sweep, the stack's TB/s at
+   each chunk and B2's device memory beside the stack (line
+   ``band100k_phase_split``), the cost model's data (line
+   ``band100k_gate_fit``), and held against its plain version on a seeded
+   system of the same shapes; the same (timed, bound, held) at chunks of 10
+   and 20 (exp_band100k's cap20 and cap40 rows);
 23. the JAX package's plateau-100k-revisit-incr-init row
    (scripts/bench_plateau.py::run_100k_incr, without its chaining): the
    default-noise 100k graph put inside the Gauss-Newton basin by
@@ -116,10 +124,13 @@ Run from the root of a checkout.  Phases, each of which must pass:
    with 80 ``schur_grid`` iterations under ``pcg_backend="auto"`` (the
    plain grid loop at this stack), held to 1.5 times the JAX package's
    recorded final chi^2; then B2 on that path (``tridiag+coarse``: L=17,
-   nc=1568, a chunk of 15): 40 iterations held to 1.5 times the plain
-   loop's chi^2 at that iteration, one launch timed against its plain
-   version and its bound, and the kernel held against its plain version
-   on a seeded system of that layout and those shapes.
+   nc=1568) for 40 iterations twice: at a chunk of 15, held to 1.5 times
+   the plain loop's chi^2 at that iteration, and at the config's chunk of
+   16 (the route ``auto`` declines), held to end more than 10 % above
+   it; one launch timed against its plain version and its bound, the cost
+   model's data with tridiag+coarse (line ``incr100k_gate_fit``), and the
+   kernel held against its plain version on a seeded system of that
+   layout and those shapes.
 
 24. ``dist_edge``: the edge-sharded solve (``toyslam_torch.parallel``)
    through ``python -m toyslam_torch.parallel.launch`` in a subprocess (one
@@ -584,35 +595,53 @@ def phase_kernels(device):
     return max(r["max_abs_err"] for r in out)
 
 
+L2_BYTES = 50 * 2**20    # the H100's L2 cache
+
+
 def chunk_bound(op, pre, rhs, chunk, restart=True):
     """The least time the card could take for one chunk launch on these
     operands: every input read once and every output written once at the
     HBM rate, or the f32 operations of the plain version (chunk + 1
     matvecs, one preconditioner apply per iteration plus the restart's,
-    dot products) at the f32 peak, whichever is larger."""
+    dot products) at the f32 peak, whichever is larger.  A band stack, or
+    B1's U, larger than the L2 is read on each of the chunk + 1 matvec
+    trips: each trip's matvec needs the one before it, so none can share
+    a read (``stream_bytes``, counted chunk + 1 times).  B2 takes the
+    coarse level's restriction as consecutive groups (the wrapper checks
+    ``rmat`` once per tensor, not per launch): it reads no ``rmat``, and
+    restricting and prolonging cost an add per pose component each; B1
+    reads ``rmat`` and multiplies by it."""
     import torch
 
     from toyslam_torch.ops import fused_pcg as fp
 
     dp, n = rhs.shape
-    tensors = [t for t in (*op, *pre, rhs) if torch.is_tensor(t)]
+    band = isinstance(op, fp.BandOperator)
+    skip = pre.rmat if band else None
+    tensors = [t for t in (*op, *pre, rhs)
+               if torch.is_tensor(t) and t is not skip]
     vec = rhs.numel() * rhs.element_size()
     nbytes = sum(t.numel() * t.element_size() for t in tensors) \
         + 8 * vec + 32   # x r p rt in and out, four scalars each way
-    if isinstance(op, fp.BandOperator):
+    if band:
         mv = 4 * op.tiles.numel() + (0 if op.u is None else 4 * op.u.numel())
+        stream = 4 * op.tiles.numel()
     else:
         mv = 4 * op.u.numel()
+        stream = 4 * op.u.numel()
+    if stream <= L2_BYTES:
+        stream = 0
+    nbytes += chunk * stream
     mv += 6 * dp * dp * n
     pc = (4 * pre.alphas.shape[0] + 2) * dp * dp * n
     if pre.cinv is not None:
-        nc = pre.rmat.shape[1]
-        pc += 4 * dp * n * nc + 2 * (dp * nc) ** 2
+        nc = pre.cinv.shape[-1]
+        pc += (2 * dp * n if band else 4 * dp * n * nc) + 2 * (dp * nc) ** 2
     flops = (chunk + 1) * (mv + 10 * dp * n) + (chunk + int(restart)) * pc
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": flops, "stream_bytes": stream}
 
 
 # --- phase 3: the main path ---------------------------------------------
@@ -1195,6 +1224,8 @@ def phase_band_kernels(gn, gdev):
     small synthetic layout with K=3, wide columns and L=0."""
     import torch
 
+    from toyslam_torch.ops import fused_pcg as fp
+
     cfg = gn.config
     chunk = cfg.pcg_fused_chunk
     # timed on the scale path's own iteration-0 operands
@@ -1212,7 +1243,16 @@ def phase_band_kernels(gn, gdev):
     split = band_phase_split(op, pre, rhs2, chunk,
                              statistics.mean(
                                  times["scale10k_L14_coarse64"]["kernel"]))
+    split["bound"] = bound
     log("band_phase_split " + json.dumps(split))
+    # every instantiation as the card compiled it: no spilled register
+    attrs = {f"dp{dp}_cols{c}": fp.band_kernel_attrs(dp, c)
+             for dp in fp.KERNEL_DPS for c in fp.BAND_COLS[dp]}
+    attrs.update({f"dp{dp}_slab": fp.band_kernel_attrs(dp, 16, slab=True)
+                  for dp in fp.KERNEL_DPS})
+    log("band_kernel_attrs " + json.dumps(attrs))
+    if any(a["local_bytes"] for a in attrs.values()):
+        raise AssertionError(f"band kernel spills registers: {attrs}")
     # held against the plain version on systems of the same shapes built
     # so that CG is far from converged after a chunk: the scale path's
     # own system carries the 1e6 gauge prior of pose 0, where r_true is
@@ -1251,20 +1291,23 @@ def phase_band_kernels(gn, gdev):
 
 def band_phase_split(op, pre, rhs, chunk, chunk_ms, probe_iters=2000):
     """Where one B2 chunk's time goes: the blocks' mean clock64 cycles (and
-    their min and max) per kind (``BAND_TIMERS``: the slab phase's steps,
-    the gather, preconditioner work, grid barriers including the wait for
-    the slowest block, the rest) as shares of the launch, scaled by the
-    measured chunk time; and the cost of one grid barrier alone on the same
+    their min and max) per kind (``BAND_TIMERS``: the band phase's steps,
+    the cluster's t exchange, the gather, preconditioner work, grid
+    barriers including the wait for the slowest block, the rest) as shares
+    of the launch, scaled by the measured chunk time; the plan; the bytes a
+    trip must read (the stack, the state values at the window rows, and
+    the w partials written and gathered) and the stack's effective TB/s
+    over the launch; and the cost of one grid barrier alone on the same
     grid (``probe_iters`` barriers, CUDA events)."""
     import torch
 
     from toyslam_torch.ops import fused_pcg as fp
 
     dev = rhs.device
-    grid, plan = fp.band_schedule(dev.index or 0, *op.tiles.shape[:2],
-                                  rhs.shape[0], *op.tiles.shape[3:],
-                                  0 if op.u is None else op.u.shape[1])
-    timing = torch.zeros((grid, len(fp.BAND_TIMERS)), dtype=torch.int64,
+    mw = 0 if op.u is None else op.u.shape[1]
+    plan = fp.band_schedule(dev.index or 0, *op.tiles.shape[:2],
+                            rhs.shape[0], *op.tiles.shape[3:], mw)
+    timing = torch.zeros((plan.grid, len(fp.BAND_TIMERS)), dtype=torch.int64,
                          device=dev)
     st = fresh_state(rhs)
     atol2 = ((1e-6 ** 2) * (rhs * rhs).sum()).reshape(1)
@@ -1276,20 +1319,82 @@ def band_phase_split(op, pre, rhs, chunk, chunk_ms, probe_iters=2000):
     spread = {k: [float(per_block[:, i].min()), float(per_block[:, i].max())]
               for i, k in enumerate(fp.BAND_TIMERS)}
     total = sum(cycles.values())
-    sync_ms = cuda_ms(lambda: fp.band_grid_sync_probe(dev, probe_iters), 3)
+    sync_ms = cuda_ms(lambda: fp.band_grid_sync_probe(dev, probe_iters, plan),
+                      3)
     # the kernel's precond_phases: two PCR levels per phase
     nph = max(-(-pre.alphas.shape[0] // 2), 4 if pre.cinv is not None else 1)
+    stack = 4 * op.tiles.numel()
+    n_chunks = op.tiles.shape[0]
+    trip = {"stack": stack,
+            "xs": 4 * n_chunks * plan.segments * plan.rows,
+            "w_partials": 2 * 4 * n_chunks * plan.segments * plan.rows}
     return {
-        "grid": grid, "slab_rows": plan.rows, "slab_cols": plan.cols,
-        "slabs_per_chunk": plan.slabs_per_chunk,
-        "slabs_per_block": plan.slabs_per_block,
-        "smem_bytes": plan.smem_bytes,
+        "plan": plan._asdict() | {"grid": plan.grid},
         "grid_sync_us": sync_ms / probe_iters * 1e3,
         "barriers_per_trip": 3 + nph,
+        "trip_bytes": trip, "trip_bytes_total": sum(trip.values()),
+        "stack_tb_per_s": (chunk + 1) * stack / (chunk_ms * 1e-3) / 1e12,
         "cycles": cycles, "cycles_min_max_over_blocks": spread,
         "share": {k: v / total for k, v in cycles.items()},
         "ms": {k: chunk_ms * v / total for k, v in cycles.items()},
     }
+
+
+def band_plan_times(op, pre, rhs, chunk, sizes, reps=3):
+    """B2 at forced schedules, cluster sizes and band widths on the same
+    operands (``sizes``: (cluster, cols) pairs, cluster "slab" for the slab
+    schedule; the plan's own first), in turns forward and back, CUDA
+    events: ms per launch for each, with the plan's clusters on the card
+    (cudaOccupancyMaxActiveClusters) and ring slots."""
+    from toyslam_torch.ops import fused_pcg as fp
+
+    st = fresh_state(rhs)
+    atol2 = ((1e-6 ** 2) * (rhs * rhs).sum()).reshape(1)
+    args = (rhs.device.index or 0, *op.tiles.shape[:2], rhs.shape[0],
+            *op.tiles.shape[3:], 0 if op.u is None else op.u.shape[1])
+
+    def forced(r, c):
+        return (dict(slab=True, cols=c) if r == "slab"
+                else dict(slab=False, cluster=r, cols=c))
+
+    out = {}
+    for r, c in sizes:
+        plan = fp.band_schedule(*args, **forced(r, c))
+        out[f"{'slab' if r == 'slab' else f'R{r}'}_c{c}"] = {
+            "ms": [], "clusters": plan.clusters, "slots": plan.slots}
+    for r, c in list(sizes) + list(reversed(sizes)):
+        out[f"{'slab' if r == 'slab' else f'R{r}'}_c{c}"]["ms"].append(
+            cuda_ms(lambda: fp._band_launch(op, pre, rhs, st, atol2, 200,
+                                            True, chunk, **forced(r, c)),
+                    reps))
+    return out
+
+
+def cluster_sizes(op, rhs):
+    """(cluster, cols) of B2's plan on the card for these operands (cluster
+    "slab" on the slab schedule), then the slab schedule at its widest and
+    every cluster size and band width that fits."""
+    from toyslam_torch.ops import fused_pcg as fp
+
+    args = (rhs.device.index or 0, *op.tiles.shape[:2], rhs.shape[0],
+            *op.tiles.shape[3:], 0 if op.u is None else op.u.shape[1])
+    own = fp.band_schedule(*args)
+    sizes = [("slab" if own.slab else own.cluster, own.cols)]
+    try:
+        widest = fp.band_schedule(*args, slab=True)
+        if ("slab", widest.cols) not in sizes:
+            sizes.append(("slab", widest.cols))
+    except ValueError:
+        pass
+    for r in fp.BAND_CLUSTER_SIZES:
+        for cols in fp.BAND_COLS[rhs.shape[0]]:
+            try:
+                fp.band_schedule(*args, r, cols, False)
+            except ValueError:
+                continue
+            if (r, cols) not in sizes:
+                sizes.append((r, cols))
+    return sizes
 
 
 def phase_scale_timing(gn, gdev):
@@ -1349,17 +1454,17 @@ def phase_ba_kernels(device):
     times[name] = chunk_times(sop, spre, srhs, kernel="band_fused_pcg_chunk",
                               reps=10)
     bounds[name] = chunk_bound(sop, spre, srhs, 16)
-    grid, plan = fp.band_schedule(device.index or 0, *sop.tiles.shape[:2], 6,
-                                  *sop.tiles.shape[3:],
-                                  0 if sop.u is None else sop.u.shape[1])
+    plan = fp.band_schedule(device.index or 0, *sop.tiles.shape[:2], 6,
+                            *sop.tiles.shape[3:],
+                            0 if sop.u is None else sop.u.shape[1])
     # where a dp=6 chunk's time goes: B2's blocks, B1's block 0
-    log("ba_band_phase_split " + json.dumps(band_phase_split(
-        sop, spre, srhs, 16, statistics.mean(times[name]["kernel"]))))
+    split = band_phase_split(sop, spre, srhs, 16,
+                             statistics.mean(times[name]["kernel"]))
+    split["bound"] = bounds[name]
+    log("ba_band_phase_split " + json.dumps(split))
     shapes = {"tiles": list(sop.tiles.shape), "n_wide": band.n_wide,
-              "pcr_levels": nlevels, "grid": grid, "slab_rows": plan.rows,
-              "slab_cols": plan.cols, "slabs_per_chunk": plan.slabs_per_chunk,
-              "slabs_per_block": plan.slabs_per_block,
-              "smem_bytes": plan.smem_bytes}
+              "pcr_levels": nlevels, "plan": plan._asdict(),
+              "grid": plan.grid}
     del sop, spre, srhs
     torch.cuda.empty_cache()
     for r in out:
@@ -1707,7 +1812,7 @@ def phase_grid_paths(device):
             if case.endswith("revisit"):
                 checks["ate"] = math.isclose(m["ate_rmse"], ref["ate"],
                                              rel_tol=5e-2)
-            m["rate"] = gn_rate(gn, gdev, 2)
+            m["rate"] = gn_rate(gn, gdev, 3)
             m["checks"] = checks
             row["runs"][backend] = m
             failed += [f"{backend}: {k}" for k, ok in checks.items() if not ok]
@@ -1774,6 +1879,7 @@ def phase_grid_kernel(graphs):
                "bound": chunk_bound(op, pre, rhs2, 16)}
     split = band_phase_split(op, pre, rhs2, chunk,
                              statistics.mean(times["kernel"]))
+    split["bound"] = bound
     log("grid_band_phase_split " + json.dumps(split))
     band = gdev.plan.band
     win_off = band.win_off.cpu().numpy()
@@ -1808,13 +1914,14 @@ def phase_grid_kernel(graphs):
             "chunk16": chunk16}
 
 
-def phase_grid_gate_fit(graphs, device):
-    """The data of the band-vs-grid cost model (grid_schur._band_cost_wins)
-    at three layouts (the two 10k rows and a 4096-pose graph): per GN
-    iteration the band operator's build (tile write and slab-major copy),
-    B2's cost per PCG trip and per launch (a 15- and a 5-iteration chunk),
-    and the plain grid loop's cost per PCG iteration (15 and 5 iterations);
-    the model's prediction and decision beside the measured costs."""
+def gate_fit_point(gdev, cfg):
+    """One layout's data for the band-vs-grid cost model
+    (grid_schur._band_cost_wins): per GN iteration the band operator's
+    build (the tile write, and the slab-major copy on the slab schedule),
+    B2's cost per launch at chunks of 15 and 5
+    iterations and so per PCG trip, and the plain grid loop's cost per PCG
+    iteration (15 and 5 iterations); the model's prediction and decision
+    beside the measured costs."""
     import dataclasses
 
     import torch
@@ -1822,6 +1929,57 @@ def phase_grid_gate_fit(graphs, device):
     from toyslam_torch.ops import fused_pcg as fp
     from toyslam_torch.ops import grid_schur as gs
     from toyslam_torch.ops import schur
+
+    gp, n = gdev.plan, gdev.num_poses
+    band = gp.band
+    fused = grid_operands(gdev, dataclasses.replace(cfg, pcg_backend="fused"))
+    plain = grid_operands(gdev, dataclasses.replace(cfg, pcg_backend="xla"))
+    op, pre, rhs2 = fused["op"], fused["pre"], fused["rhs2"]
+    st = fresh_state(rhs2)
+    atol2 = torch.zeros(1, device=rhs2.device)
+
+    def launch(k):
+        return lambda: fp.band_fused_pcg_chunk(op, pre, rhs2, st, atol2,
+                                               200, True, k)
+
+    papply = gs._precond_apply(cfg, plain["pre"])
+
+    def loop(k):
+        return lambda: schur.pcg(plain["matvec"], papply, plain["rhs"],
+                                 0.0, k, k)
+
+    b15, b5 = cuda_ms(launch(15), 5), cuda_ms(launch(5), 5)
+    g15, g5 = cuda_ms(loop(15), 3), cuda_ms(loop(5), 3)
+    # the tile write, and on the slab schedule the slab-major copy
+    plan = fp.band_schedule(rhs2.device.index or 0, band.n_chunks,
+                            band.k_windows, 3, band.w_row, band.chunk_b * 2,
+                            0 if op.u is None else op.u.shape[1])
+    build = cuda_ms(lambda: fp._slab_major(fused["build"]().tiles, plan.cols)
+                    if plan.slab else fused["build"](), 3)
+    rows = gp.L_pose.shape[0] + gp.P_pose.shape[0]
+    fit_cfg = dataclasses.replace(cfg, pcg_max_iters=15)
+    model = dict(zip(("band_s", "grid_s"), gs._cost_model(fit_cfg, gp)))
+    out = {
+        "n": n, "rows": rows, "stack_bytes": band.tile_bytes,
+        "windows": band.n_chunks * band.k_windows,
+        "band_build_ms": build, "b2_chunk15_ms": b15, "b2_chunk5_ms": b5,
+        "b2_trip_ms": (b15 - b5) / 10,
+        "grid_pcg15_ms": g15, "grid_pcg5_ms": g5,
+        "grid_iter_ms": (g15 - g5) / 10,
+        "measured_band_ms": build + b15, "measured_grid_ms": g15,
+        "model": model,
+        "model_takes_band": gs._band_cost_wins(fit_cfg, gp, n),
+        "plan": plan._asdict(),
+    }
+    del fused, plain, op, pre
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_grid_gate_fit(graphs, device):
+    """The data of the band-vs-grid cost model at three layouts (the two
+    10k rows and a 4096-pose graph; the 100k layout's point is phase
+    band100k's), :func:`gate_fit_point` each (line ``grid_gate_fit``)."""
     from toyslam_torch.optimizer import GaussNewton
     from toyslam_torch.sim import synthetic
 
@@ -1830,50 +1988,7 @@ def phase_grid_gate_fit(graphs, device):
     cfg = grid_config("large-sparse-10k", "fused")
     layouts = dict(graphs)
     layouts["large-sparse-4k"] = GaussNewton(cfg)._prepare(small).to(device)
-    out = {}
-    for name, gdev in layouts.items():
-        gp, n = gdev.plan, gdev.num_poses
-        band = gp.band
-        fused = grid_operands(gdev, cfg)
-        plain = grid_operands(gdev, dataclasses.replace(cfg,
-                                                        pcg_backend="xla"))
-        op, pre, rhs2 = fused["op"], fused["pre"], fused["rhs2"]
-        mw = 0 if op.u is None else op.u.shape[1]
-        _, plan = fp.band_schedule(device.index or 0, band.n_chunks,
-                                   band.k_windows, 3, band.w_row,
-                                   band.chunk_b * 2, mw)
-        st = fresh_state(rhs2)
-        atol2 = torch.zeros(1, device=device)
-
-        def launch(k):
-            return lambda: fp.band_fused_pcg_chunk(op, pre, rhs2, st, atol2,
-                                                   200, True, k)
-
-        papply = gs._precond_apply(cfg, plain["pre"])
-
-        def loop(k):
-            return lambda: schur.pcg(plain["matvec"], papply, plain["rhs"],
-                                     0.0, k, k)
-
-        b15, b5 = cuda_ms(launch(15), 5), cuda_ms(launch(5), 5)
-        g15, g5 = cuda_ms(loop(15), 3), cuda_ms(loop(5), 3)
-        build = cuda_ms(lambda: fp._slab_major(fused["build"]().tiles,
-                                               plan.cols), 3)
-        rows = gp.L_pose.shape[0] + gp.P_pose.shape[0]
-        model = dict(zip(("band_s", "grid_s"), gs._cost_model(cfg, gp)))
-        out[name] = {
-            "n": n, "rows": rows, "stack_bytes": band.tile_bytes,
-            "windows": band.n_chunks * band.k_windows,
-            "band_build_ms": build, "b2_chunk15_ms": b15, "b2_chunk5_ms": b5,
-            "b2_trip_ms": (b15 - b5) / 10,
-            "grid_pcg15_ms": g15, "grid_pcg5_ms": g5,
-            "grid_iter_ms": (g15 - g5) / 10,
-            "measured_band_ms": build + b15, "measured_grid_ms": g15,
-            "model": model,
-            "model_takes_band": gs._band_cost_wins(cfg, gp, n),
-        }
-        del fused, plain, op, pre
-        torch.cuda.empty_cache()
+    out = {name: gate_fit_point(gdev, cfg) for name, gdev in layouts.items()}
     log("grid_gate_fit " + json.dumps(out))
     return out
 
@@ -2279,7 +2394,7 @@ def phase_band100k(device):
         "ate below dead reckoning":
             m["ate_rmse"] < m["ate_dead_reckoning"],
     }
-    m["rate"] = gn_rate(gn, gdev, 2)
+    m["rate"] = gn_rate(gn, gdev, 3)
     # the same row through the plain grid loop (the JAX script's
     # grid-100k-jacobi-cg128 row, recorded with the same chi^2), and what
     # the cost model of pcg_backend="auto" would take
@@ -2296,9 +2411,17 @@ def phase_band100k(device):
         "ate_rmse": frontend.ate_rmse(
             res_p.graph.poses[:n].cpu().numpy(), poses_gt),
         "kernel_launches": plain_launches,
-        "rate": gn_rate(gn_plain, gdev, 1),
+        "rate": gn_rate(gn_plain, gdev, 3),
     }
+    # auto's decision against the two routes' rates in this call: both
+    # are host-timed (up to 2x between calls, PERF.md §7), so it must
+    # agree wherever they part by more than 10 %
+    band_s, plain_s = (m["rate"]["gn_iter_per_s"],
+                       m["plain_loop"]["rate"]["gn_iter_per_s"])
     checks.update({
+        "auto takes the faster route":
+            abs(band_s - plain_s) <= 0.1 * max(band_s, plain_s)
+            or m["auto_takes_band"] == (band_s > plain_s),
         "plain loop: no launch": sum(plain_launches.values()) == 0,
         "plain loop: chi2_first": math.isclose(
             errors_p[0], ref["chi2_first"], rel_tol=1e-4),
@@ -2328,13 +2451,35 @@ def phase_band100k(device):
                 for c in (10, 20)}
     split = band_phase_split(op, pre, rhs2, chunk,
                              statistics.mean(times["kernel"]))
+    split["bound"] = bound
+    split["by_cluster"] = band_plan_times(op, pre, rhs2, chunk,
+                                          cluster_sizes(op, rhs2))
+    for c, v in by_chunk.items():
+        split[f"chunk{c}_stack_tb_per_s"] = (c + 1) * split["trip_bytes"][
+            "stack"] / (statistics.mean(v["chunk_ms"]["kernel"]) * 1e-3) / 1e12
+    # B2's device memory beside its operands: one launch's workspace and
+    # outputs (the stack is read where it was built)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fp.band_fused_pcg_chunk(op, pre, rhs2, fresh_state(rhs2), torch.zeros(
+        1, device=device), 200, True, chunk)
+    torch.cuda.synchronize()
+    split["launch_extra_bytes"] = torch.cuda.max_memory_allocated() - base
+    split["stack_bytes"] = 4 * op.tiles.numel()
     log("band100k_phase_split " + json.dumps(split))
     log("band100k_kernel " + json.dumps({"shapes": shapes, "chunk_ms": times,
                                          "bound": bound,
                                          "by_chunk": by_chunk}))
+    del ops, op, pre, rhs2
+    torch.cuda.empty_cache()
+    # the cost model's data at this layout (the other three: phase
+    # grid_gate_fit)
+    fit = gate_fit_point(gdev, cfg)
+    log("band100k_gate_fit " + json.dumps(fit))
     win_off = band.win_off.cpu().numpy()
     w_row, b_dl, n_wide = band.w_row, band.chunk_b * 2, band.n_wide
-    del ops, op, pre, rhs2, gdev, res
+    del gdev, res
     torch.cuda.empty_cache()
     sop, spre, srhs = synthetic_band_system(
         n_pad, win_off, w_row, b_dl, 2 * n_wide, 0, cfg.pcg_coarse_group,
@@ -2358,7 +2503,8 @@ def phase_band100k(device):
     # the laid-out host graph, for exp_band100k's row in phase scale_entry
     return {"path": m, "max_abs": max(r["max_abs_err"] for r in out),
             "chunk_ms": times, "bound": bound, "split": split,
-            "by_chunk": by_chunk, "graph": (graph, poses_gt, None)}
+            "by_chunk": by_chunk, "gate_fit": fit,
+            "graph": (graph, poses_gt, None)}
 
 
 INCR100K_JAX = {"chi2_dead_reckoning": 5302700032.0,
@@ -2611,12 +2757,16 @@ def phase_incr100k(device):
     the optimize ends below 1.5 times the JAX package's final chi^2.
 
     Then B2 on this path (``pcg_backend="fused"``, ``tridiag+coarse``: 17
-    PCR levels, nc=1568), with a chunk of 15 so that the direction
-    restarts every 30 iterations as the plain loop's does: 40 iterations
-    from the same state, held to 1.5 times the plain loop's chi^2 at that
-    iteration; one launch timed on the state's own operands against its
-    plain version and its bound; and the kernel held against its plain
-    version on a seeded system of this layout and these shapes."""
+    PCR levels, nc=1568), 40 iterations from the same state twice: with a
+    chunk of 15, so that the direction restarts every 30 iterations as the
+    plain loop's does, held to 1.5 times the plain loop's chi^2 at that
+    iteration; and with the config's own chunk of 16, the route ``auto``
+    would take (a restart at every chunk), which it declines because that
+    route ends above the plain loop for all its GN iterations a second:
+    held to end more than 10 % above the loop's chi^2 at that iteration.
+    Then one launch timed on the state's own operands against its plain
+    version and its bound, and the kernel held against its plain version
+    on a seeded system of this layout and these shapes."""
     import dataclasses
 
     import torch
@@ -2634,16 +2784,26 @@ def phase_incr100k(device):
     }
     fused = dataclasses.replace(base, pcg_backend="fused", pcg_fused_chunk=15,
                                 iterations=40)
-    b2 = incr100k_optimize(fused, gprep, chi2, ate)
-    plain_at = m["chi2"][b2["iterations_run"] - 1]
+    runs = {c: incr100k_optimize(dataclasses.replace(
+        fused, pcg_fused_chunk=c), gprep, chi2, ate)
+        for c in (15, base.pcg_fused_chunk)}
+    b2, b16 = runs[15], runs[base.pcg_fused_chunk]
+    plain_at = m["chi2"][39] if m["iterations_run"] >= 40 else math.inf
     checks.update({
-        "B2 launched": b2["kernel_launches"]["band_fused_pcg_chunk"] > 0
-        and b2["kernel_launches"]["fused_pcg_chunk"] == 0,
+        "B2 launched": all(
+            r["kernel_launches"]["band_fused_pcg_chunk"] > 0
+            and r["kernel_launches"]["fused_pcg_chunk"] == 0
+            for r in runs.values()),
         "B2 within 1.5x of the plain loop at its last iteration":
-            b2["iterations_run"] == 40
-            and b2["chi2"][-1] < 1.5 * plain_at,
+            b2["iterations_run"] == 40 and b2["chi2"][-1] < 1.5 * plain_at,
+        "the route auto declines ends above the plain loop":
+            b16["iterations_run"] == 40
+            and 1.1 * plain_at < b16["chi2"][-1] < math.inf,
     })
     m["b2"] = dict(b2, plain_loop_chi2_at_last_iteration=plain_at)
+    m["b2_config_chunk"] = dict(
+        b16, gn_iter_per_s=b16["iterations_run"] / b16["optimize_s"])
+    m["gn_iter_per_s"] = m["iterations_run"] / m["optimize_s"]
     m["checks"] = checks
     log("incr100k " + json.dumps(m))
     failed_checks("100k incremental initialisation", checks)
@@ -2660,7 +2820,12 @@ def phase_incr100k(device):
                                          "bound": bound}))
     band, n_pad = gprep.plan.band, gprep.num_poses
     win_off = band.win_off.cpu().numpy()
-    del ops, op, pre, rhs2, gprep
+    del ops, op, pre, rhs2
+    torch.cuda.empty_cache()
+    # the cost model's data at this layout with tridiag+coarse
+    fit = gate_fit_point(gprep, base)
+    log("incr100k_gate_fit " + json.dumps(fit))
+    del gprep
     torch.cuda.empty_cache()
     sop, spre, srhs = synthetic_band_system(
         n_pad, win_off, band.w_row, band.chunk_b * 2, 2 * band.n_wide,
@@ -2681,7 +2846,7 @@ def phase_incr100k(device):
             f"band kernel disagrees with plain version at the incr100k "
             f"layout: {bad}")
     return {"path": m, "max_abs": max(r["max_abs_err"] for r in out),
-            "chunk_ms": times, "bound": bound}
+            "chunk_ms": times, "bound": bound, "gate_fit": fit}
 
 
 # --- phases 24-27: the sharded solves (toyslam_torch.parallel) ------------
@@ -3611,10 +3776,13 @@ def main(argv=None) -> int:
         bound_ms=bk100["bound"]["bound_ms"],
         bound_by=bk100["bound"]["bound_by"], library_ms=None)
     # B2 on the 100k default-noise graph after incremental_init (17 PCR
-    # levels, nc=1568): the launches of that path's 40-iteration optimize
+    # levels, nc=1568): the launches of that path's two 40-iteration
+    # optimizes, at chunks of 15 and 16
     bi = state["incr100k"]
+    incr_b2 = {k: bi["path"][k]["kernel_launches"]["band_fused_pcg_chunk"]
+               for k in ("b2", "b2_config_chunk")}
     b2["grid100k_incr"] = dict(
-        launches=bi["path"]["b2"]["kernel_launches"]["band_fused_pcg_chunk"],
+        launches=sum(incr_b2.values()), launches_by_path=incr_b2,
         max_abs_err=bi["max_abs"],
         ms=statistics.mean(bi["chunk_ms"]["kernel"]),
         plain_ms=statistics.mean(bi["chunk_ms"]["plain"]),

@@ -256,29 +256,38 @@ def test_band_mode_static_refusals(g2100, monkeypatch):
 
 
 def test_band_cost_model_decisions():
-    """The model re-fitted on the H100, on stub layouts: the band kernel
-    wins at the bench rows' stacks (it measured ten times cheaper there),
-    and the plain grid loop on every stack beyond the fitted range (at the
-    100k row's 3.05 GB the kernel measured 2.8 times the fitted line and
-    lost to the loop)."""
+    """The model re-fitted on the H100 (the redesigned kernel, layouts up
+    to the 100k row's 3.05 GB stack), on stub layouts: the band kernel
+    wins at the bench rows' stacks against the plain loop's cheapest
+    measured iteration, and the plain grid loop takes every stack above
+    245 MB (at the 100k row's 3.05 GB the kernel lost to the loop with
+    jacobi+coarse, and its route stopped the plateau rows early with
+    tridiag+coarse), whatever the preconditioner."""
 
     def stub(stack_bytes):
         band = type("Band", (), {"tile_bytes": stack_bytes})()
         return type("Plan", (), {"band": band})()
 
     cfg = TOpt(**BENCH)
+    jacobi = dataclasses.replace(cfg, pcg_precond="jacobi+coarse",
+                                 pcg_max_iters=60)
     for stack, wins in [(245_366_784, True), (179_306_496, True),
-                        (48_758_784, True), (250_000_001, False),
-                        (2 << 30, False), (3_051_356_160, False),
-                        (5 << 30, False), (8 << 30, False)]:
+                        (48_758_784, True), (250_000_000, True),
+                        (250_000_001, False), (2 << 30, False),
+                        (3_051_356_160, False), (5 << 30, False),
+                        (8 << 30, False)]:
         assert t_gs._band_cost_wins(cfg, stub(stack), 10240) == wins, stack
+        assert t_gs._band_cost_wins(jacobi, stub(stack), 100352) == wins, \
+            stack
     t_band, t_grid = t_gs._cost_model(cfg, stub(245_366_784))
-    np.testing.assert_allclose(t_band, 0.9e-3 + 15 * (7.8e-5 + 245_366_784
-                                                       / 1.19e12))
-    np.testing.assert_allclose(t_grid, 15 * 3.8e-3)
-    # a one-iteration budget still pays the build once: the band wins
-    one = dataclasses.replace(cfg, pcg_max_iters=1)
-    assert t_gs._band_cost_wins(one, stub(245_366_784), 10240)
+    np.testing.assert_allclose(t_band, 1.0e-3 + 15 * (7.2e-5 + 245_366_784
+                                                       / 1.93e12))
+    np.testing.assert_allclose(t_grid, 15 * 0.55e-3)
+    # the build is paid once per GN iteration: budgets of one and two
+    # iterations take the loop, three the band
+    for iters, wins in [(1, False), (2, False), (3, True)]:
+        few = dataclasses.replace(cfg, pcg_max_iters=iters)
+        assert t_gs._band_cost_wins(few, stub(245_366_784), 10240) == wins
 
 
 # --- the reference values of chip_smoke.py --------------------------------

@@ -121,13 +121,17 @@ def test_resident_shared_memory_formula():
 
 
 def test_band_shared_memory_formula():
-    """A slab of all the chunk's rows by `cols` columns, the state values of
-    its rows, t over its columns, the 256 float4 combination slots, u^T v
-    and 64 reduction slots, in bytes."""
-    assert fp.band_smem_bytes(3072, 16, 2) == \
-        4 * (3072 * 16 + 3072 + 16 + 1024 + 4 + 64)
-    assert fp.band_smem_bytes(48, 128, 0) == \
-        4 * (48 * 128 + 48 + 128 + 1024 + 0 + 64)
+    """A ring of `slots` parts of `pr` rows by `cols` columns with the rows'
+    state values, the two cluster-visible partial t buffers and t over the
+    columns, the 256 float4 combination slots, u^T v and 64 reduction
+    slots (rounded to 8 bytes), and an 8-byte mbarrier per slot, in
+    bytes."""
+    assert fp.band_smem_bytes(192, 128, 2, 2) == \
+        4 * (2 * 192 * 129 + 3 * 128 + 1024 + 4 + 64 + 2 * 2)
+    assert fp.band_smem_bytes(240, 64, 3, 0) == \
+        4 * (3 * 240 * 65 + 3 * 64 + 1024 + 0 + 64 + 2 * 3)
+    assert fp.band_smem_bytes(48, 32, 1, 1) == \
+        4 * (48 * 33 + 3 * 32 + 1024 + 4 + 64 + 2 * 1)
 
 
 def _three_configs():
@@ -184,39 +188,20 @@ def test_kernel_layouts_at_the_three_configs(three_configs, poses, mode,
     b_dl, mw = band.chunk_b * band.dl, band.n_wide * band.dl
     assert (band.n_chunks, band.k_windows, band.w_row, b_dl, mw) == \
         (39, 2, 512, 512, 2)
-    plan = fp.band_slab_plan(band.n_chunks, band.k_windows, 3, band.w_row,
-                             b_dl, mw, fp.SMEM_BUDGET_BYTES, fp.H100_SMS)
-    # 3072 rows per chunk: 16 of the 512 columns fit with all the rows (32
-    # do not), so 32 slabs per chunk, 1248 in all, at most 10 per block
-    assert plan == fp.BandSlabPlan(3072, 16, 32, 10,
-                                   fp.band_smem_bytes(3072, 16, 2))
-    assert plan.smem_bytes <= fp.SMEM_BUDGET_BYTES < \
-        fp.band_smem_bytes(3072, 32, 2)
-    assert plan.slabs_per_chunk * plan.cols == b_dl
-    assert plan.slabs_per_block == -(-39 * 32 // 132)
+    plan = fp.band_tile_plan(band.n_chunks, band.k_windows, 3, band.w_row,
+                             b_dl, mw, fp.SMEM_BUDGET_BYTES, fp.H100_CLUSTERS)
+    # 3072 rows per chunk: whole-height slabs of 16 of the 512 columns fit
+    # a block (32 do not), so the slab schedule: 32 slabs a chunk, one
+    # unit each, 1248 in all, at most 10 per block of 132
+    assert plan == fp.BandTilePlan(True, 3072, 1, 1, 3072, 16, 32, 32, 1,
+                                   132, 10,
+                                   fp.band_smem_bytes(3072, 16, 1, 2))
+    assert plan.grid == 132 and plan.smem_bytes <= fp.SMEM_BUDGET_BYTES < \
+        fp.band_smem_bytes(3072, 32, 1, 2)
     nc = 10_240 // 160
-    assert fp.band_workspace_floats(3, np_, 39, plan, b_dl, mw, nc, 132) == (
-        7 * 3 * np_ + 39 * 3072 + 32 * 39 * 3072 + 10 * 2 + 132 * 3 * nc
-        + 2 * 3 * nc + 2 * 132 * 4)
-
-
-def test_band_slab_plan_adapts_to_the_card():
-    """The slab width follows the shared memory the card offers; a chunk
-    too tall for even 4 columns, or with a row count the 16-byte copies
-    cannot take, is refused."""
-    big = fp.band_slab_plan(39, 2, 3, 512, 512, 2, 232_448, 132)
-    small = fp.band_slab_plan(39, 2, 3, 512, 512, 2, 166_912, 132)
-    assert (small.cols, small.slabs_per_chunk) == (8, 64)
-    assert small.smem_bytes <= 166_912 < fp.band_smem_bytes(3072, 16, 2)
-    assert big.cols == 2 * small.cols
-    whole = fp.band_slab_plan(1, 1, 3, 16, 128, 0, 232_448, 4)
-    assert (whole.cols, whole.slabs_per_chunk) == (128, 1)
-    many = fp.band_slab_plan(60, 2, 3, 256, 128, 2, 232_448, 132)
-    assert (many.cols, many.slabs_per_block) == (32, 2)
-    with pytest.raises(ValueError, match="does not fit"):
-        fp.band_slab_plan(39, 2, 3, 16_384, 512, 2, 232_448, 132)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        fp.band_slab_plan(39, 1, 3, 5, 512, 2, 232_448, 132)
+    assert fp.band_workspace_floats(3, np_, 39, plan, mw, nc) == (
+        7 * 3 * np_ + 39 * 3072 + 32 * 39 * 3072 + 10 * 2 + 2 * 3 * nc
+        + 2 * 132 * 4)
 
 
 def test_slab_major_stack_and_its_cache():
@@ -235,6 +220,215 @@ def test_slab_major_stack_and_its_cache():
     tiles.add_(1.0)
     again = fp._slab_major(tiles, 4)
     assert again is not slabs and torch.equal(again, slabs + 1.0)
+
+
+# (n_chunks, K, dp, Wrow, B*dl, Mw): the 10k path, the 10k grid rows
+# (nc=320: the same stack), the 512 x 4096 BA graph and the 100k row
+BAND_LAYOUTS = {
+    "10k": (39, 2, 3, 512, 512, 2),
+    "grid10k_nc320": (39, 2, 3, 512, 512, 2),
+    "ba512_dp6": (31, 4, 6, 128, 384, 36),
+    "100k": (388, 10, 3, 256, 256, 0),
+}
+
+
+@pytest.mark.parametrize("name,want", [
+    ("10k", (True, 1, 1, 3072, 16, 32, 32, 1, 132, 10)),
+    ("grid10k_nc320", (True, 1, 1, 3072, 16, 32, 32, 1, 132, 10)),
+    ("ba512_dp6", (True, 1, 1, 3072, 16, 24, 24, 1, 132, 6)),
+    ("100k", (False, 16, 2, 240, 64, 4, 1, 3, 7, 56)),
+])
+def test_band_tile_plan_at_the_path_layouts(name, want):
+    """The plan on an H100 at each layout the port runs B2 on: the slab
+    schedule where a whole-height slab of 16 columns fits a block (3072
+    rows a chunk), else the widest cluster band whose ring of parts holds
+    it over the fewest blocks, then the fewest segments that deal the
+    units evenly: at 100k (7680 rows) clusters of 16 blocks (non-portable)
+    of 480 rows take bands of 64 columns, one unit per chunk, 388 over 7
+    clusters (56 at most)."""
+    nch, k, dp, w, b_dl, mw = BAND_LAYOUTS[name]
+    plan = fp.band_tile_plan(nch, k, dp, w, b_dl, mw, fp.SMEM_BUDGET_BYTES,
+                             fp.H100_CLUSTERS)
+    assert (plan.slab, plan.cluster, plan.parts, plan.pr, plan.cols,
+            plan.bands, plan.segments, plan.slots, plan.clusters,
+            plan.units_per_cluster) == want
+    assert plan.rows == k * dp * w
+    assert plan.rows_per_block * plan.cluster >= plan.rows
+    assert plan.slots >= plan.parts
+    assert plan.bands * plan.cols == b_dl and plan.bands % plan.segments == 0
+    assert plan.units_per_cluster == -(-nch * plan.segments // plan.clusters)
+    assert plan.smem_bytes == fp.band_smem_bytes(plan.pr, plan.cols,
+                                                 plan.slots, mw)
+    assert plan.smem_bytes <= fp.SMEM_BUDGET_BYTES
+    # the w partials: one per row per unit, at most a sixteenth of the
+    # stack's bytes
+    assert plan.segments * fp.BAND_SLAB_MIN_COLS <= b_dl
+    if not plan.slab:
+        assert plan.pr % 8 == 0 and plan.pr <= fp.BAND_THREADS
+
+
+@pytest.mark.parametrize("case", ["tiny", "small_smem", "forced",
+                                  "forced_cols", "uneven_rows",
+                                  "few_clusters", "slab_forced",
+                                  "band_forced"])
+def test_band_tile_plan_edge_shapes(case):
+    """A chunk of 48 rows takes one slab of the widest width; a smaller
+    shared-memory limit that leaves slabs under 16 columns takes cluster
+    bands, splitting rows wider to keep wide bands; a forced cluster size,
+    band width or schedule is kept (a slab of 4 columns at 100k, cluster
+    bands at 10k); rows that R does not divide round up to a part of a
+    multiple of 8 rows; a card with fewer clusters deals more units to
+    each."""
+    if case == "tiny":
+        plan = fp.band_tile_plan(1, 1, 3, 16, 128, 0, 232_448,
+                                 fp.H100_CLUSTERS)
+        assert (plan.slab, plan.pr, plan.cols, plan.bands,
+                plan.segments) == (True, 48, 128, 1, 1)
+    elif case == "small_smem":
+        plan = fp.band_tile_plan(39, 2, 3, 512, 512, 2, 120_000,
+                                 fp.H100_CLUSTERS)
+        assert (plan.slab, plan.cluster, plan.cols, plan.parts) == \
+            (False, 16, 128, 1)
+        assert plan.smem_bytes <= 120_000 < fp.band_smem_bytes(192, 128, 2,
+                                                               2)
+    elif case == "forced":
+        plan = fp.band_tile_plan(39, 2, 3, 512, 512, 2, 232_448,
+                                 fp.H100_CLUSTERS, cluster=16)
+        assert (plan.slab, plan.cluster, plan.parts, plan.pr, plan.cols,
+                plan.clusters) == (False, 16, 1, 192, 128, 7)
+    elif case == "forced_cols":
+        plan = fp.band_tile_plan(39, 2, 3, 512, 512, 2, 232_448,
+                                 fp.H100_CLUSTERS, cols=64)
+        assert (plan.slab, plan.cluster, plan.cols, plan.bands,
+                plan.slots) == (False, 4, 64, 8, 3)
+    elif case == "uneven_rows":
+        plan = fp.band_tile_plan(5, 3, 3, 20, 128, 0, 232_448,
+                                 fp.H100_CLUSTERS, cluster=8)
+        assert (plan.rows, plan.parts, plan.pr) == (180, 1, 24)
+        assert 7 * plan.rows_per_block < plan.rows <= 8 * plan.rows_per_block
+    elif case == "few_clusters":
+        plan = fp.band_tile_plan(388, 10, 3, 256, 256, 0, 232_448, {16: 3})
+        assert (plan.cluster, plan.clusters, plan.units_per_cluster) == \
+            (16, 3, 130)
+    elif case == "slab_forced":
+        plan = fp.band_tile_plan(388, 10, 3, 256, 256, 0, 232_448,
+                                 fp.H100_CLUSTERS, slab=True)
+        assert (plan.slab, plan.pr, plan.cols, plan.segments) == \
+            (True, 7680, 4, 64)
+    else:
+        plan = fp.band_tile_plan(39, 2, 3, 512, 512, 2, 232_448,
+                                 fp.H100_CLUSTERS, slab=False)
+        assert (plan.slab, plan.cluster, plan.cols) == (False, 8, 128)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("rows", "multiple of 4"), ("tall", "does not fit"),
+    ("parts", "does not fit"), ("no_cluster", "does not fit"),
+    ("narrow", "is built"), ("slab_tall", "no slab"),
+    ("dp6_band", "no cluster band is built at dp=6"),
+])
+def test_band_tile_plan_refuses(case, match):
+    """Rows the 16-byte copies cannot take, a chunk too tall for 16 blocks
+    of 8 parts, a forced cluster too small for its rows, a card that runs
+    no cluster, a band width that is not built (32 columns: no path's plan
+    takes it), a forced slab too tall for a block, and cluster bands at
+    dp=6 (only slabs are built there) are refused."""
+    args = {
+        "rows": ((39, 1, 3, 5, 512, 2, 232_448, fp.H100_CLUSTERS), {}),
+        "tall": ((4, 10, 3, 4096, 512, 0, 232_448, fp.H100_CLUSTERS), {}),
+        "parts": ((388, 10, 3, 256, 256, 0, 232_448, fp.H100_CLUSTERS),
+                  dict(cluster=2, cols=64)),
+        "no_cluster": ((39, 2, 3, 512, 512, 2, 232_448, {}), {}),
+        "narrow": ((39, 2, 3, 512, 512, 2, 232_448, fp.H100_CLUSTERS),
+                   dict(cols=32)),
+        "slab_tall": ((4, 10, 6, 2048, 512, 0, 232_448, fp.H100_CLUSTERS),
+                      dict(slab=True)),
+        "dp6_band": ((31, 4, 6, 128, 384, 36, 232_448, fp.H100_CLUSTERS),
+                     dict(slab=False)),
+    }[case]
+    with pytest.raises(ValueError, match=match):
+        fp.band_tile_plan(*args[0], **args[1])
+
+
+def _kernel_band_rows(tiles, win_off, cover, x, plan):
+    """V V^T x as the band kernel computes it, in numpy f32 and in its
+    order: xwin, then per unit (chunk c, segment s) of the plan the bands
+    in order, each band's t as the cluster ranks' partials over their rows
+    added in rank order, the w rows summed over the unit's bands into the
+    unit's slot of wpart [n_chunks, rows, segments]; then the gather: per
+    pose and component the cover entries in order, each over its row's
+    unit slots in order."""
+    nch, k_win, dp, w_row, b_dl = tiles.shape
+    n = x.shape[1]
+    rows, r, rpb, cb, seg = (plan.rows, plan.cluster, plan.rows_per_block,
+                             plan.cols, plan.segments)
+    nbu = plan.bands // seg
+    d = tiles.reshape(nch, rows, b_dl)
+    xext = np.concatenate([x, np.zeros((dp, w_row), np.float32)], axis=1)
+    rho = np.arange(rows)
+    ka, w = rho // w_row, rho % w_row
+    xwin = xext[ka % dp, win_off[:, ka // dp] + w]           # [nch, rows]
+    wpart = np.zeros((nch, rows, seg), np.float32)
+    for u in range(nch * seg):
+        c, s = divmod(u, seg)
+        for b in range(nbu):
+            j = (s * nbu + b) * cb
+            t = np.zeros(cb, np.float32)
+            for k in range(r):
+                lo, hi = k * rpb, min(rows, (k + 1) * rpb)
+                t = t + xwin[c, lo:hi] @ d[c, lo:hi, j:j + cb]
+            wpart[c, :, s] += d[c, :, j:j + cb] @ t
+    out = np.zeros((dp, n), np.float32)
+    flat = wpart.reshape(-1)
+    for q in range(n):
+        for cv in cover[q]:
+            if cv < 0:
+                break
+            for a in range(dp):
+                slot = (cv + a * w_row) * seg
+                for s in range(seg):
+                    out[a, q] += flat[slot + s]
+    return out
+
+
+@pytest.mark.parametrize("dp,cluster,cols", [(3, None, None), (3, 4, 64),
+                                             (6, None, None), (3, 8, 64),
+                                             (3, 16, 128), (3, "slab", 8)])
+def test_band_cover_and_unit_slots_give_the_plain_matvec(dp, cluster, cols):
+    """The kernel's tables applied in numpy on a small banded system (6
+    chunks, K=3 windows at random multiples of 128, one past Np): the
+    cover table's rows, the unit slots of wpart per segment and the rank
+    split of each band's rows give V V^T x of ``band_matvec_ref`` within
+    f32 rounding, at the plan's own choice (the slab schedule), a forced
+    narrow slab and forced cluster sizes and band widths (more segments
+    than one), at dp=3 and dp=6 (slabs)."""
+    from toyslam_torch.ops import band_plan
+
+    rng = np.random.default_rng(3)
+    n, nch, k_win, w_row, b_dl = 900, 6, 3, 128, 256
+    win_off = rng.choice(np.arange(0, n, 128), size=(nch, k_win))
+    win_off[-1, -1] = 896
+    win_off = win_off.astype(np.int32)
+    cover = band_plan._window_cover(win_off, n, w_row, dp).astype(np.int32)
+    live = (win_off[..., None] + np.arange(w_row)) < n
+    tiles = (rng.normal(size=(nch, k_win, dp, w_row, b_dl))
+             * live[:, :, None, :, None]).astype(np.float32)
+    x = rng.normal(size=(dp, n)).astype(np.float32)
+    force = (dict(slab=True, cols=cols) if cluster == "slab"
+             else dict(cluster=cluster, cols=cols))
+    plan = fp.band_tile_plan(nch, k_win, dp, w_row, b_dl, 0,
+                             fp.SMEM_BUDGET_BYTES,
+                             {1: 7, 2: 5, 4: 4, 8: 4, 16: 4}, **force)
+    assert plan.cols == (cols or plan.cols)
+    assert plan.slab == (cluster in (None, "slab"))
+    assert plan.segments > 1    # 6 chunks deal unevenly to these clusters
+    got = _kernel_band_rows(tiles, win_off, cover, x, plan)
+    zero = torch.zeros(dp, dp, n)
+    op = fp.BandOperator(torch.from_numpy(tiles), torch.from_numpy(win_off),
+                         torch.from_numpy(cover), None, zero, zero, zero)
+    want = -fp.band_matvec_ref(op, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-5 * float(np.abs(want).max()))
 
 
 # --- on the GPU ---------------------------------------------------------
@@ -321,9 +515,11 @@ def test_dp6_wrapper_on_cpu_runs_plain_version_uncounted(kernel):
     assert float(a.rr) < float(st.rr)
 
 
-def _tiny_band(np_=300, seed=0, n_chunks=2, w_row=128, b_dl=128, dp=3):
+def _tiny_band(np_=300, seed=0, n_chunks=2, w_row=128, b_dl=128, dp=3,
+               nc=0):
     """A small SPD band system (K=2 windows per chunk, two wide columns),
-    block-Jacobi preconditioned.  Two chunks: windows at 0, 128, 128, 256
+    block-Jacobi preconditioned, with an optional coarse level over ``nc``
+    groups of consecutive poses.  Two chunks: windows at 0, 128, 128, 256
     (one past Np); more: windows at random multiples of 128."""
     from toyslam_torch.ops import band_plan
 
@@ -350,19 +546,56 @@ def _tiny_band(np_=300, seed=0, n_chunks=2, w_row=128, b_dl=128, dp=3):
         u=f32(rng.normal(0.0, 0.02, (dp, 2, np_))),
         tdiag=(4.0 * eye).contiguous(), tupper=up,
         tlower=torch.roll(up.transpose(0, 1), 1, dims=-1).contiguous())
+    cinv = rmat = None
+    if nc:
+        c = rng.normal(size=(dp * nc, dp * nc))
+        cinv = f32((0.01 * c @ c.T).reshape(dp, nc, dp, nc)
+                   .transpose(0, 2, 1, 3).copy())
+        rmat = (torch.arange(np_)[:, None] // (np_ // nc)
+                == torch.arange(nc)[None]).float()
     pre = fp.FusedPrecond(torch.zeros(0, dp, dp, np_),
                           torch.zeros(0, dp, dp, np_),
-                          (0.25 * eye).contiguous(), None, None)
+                          (0.25 * eye).contiguous(), cinv, rmat)
     return op, pre, f32(rng.normal(size=(dp, np_)))
+
+
+@pytest.mark.parametrize("case", ["groups", "not_dividing", "moved",
+                                  "scaled", "negative"])
+def test_band_coarse_restriction_must_be_consecutive_groups(case):
+    """The band kernel reads the coarse group of pose q as q / (Np / nc):
+    the wrapper takes the 0/1 restriction of consecutive equal groups, once
+    per tensor until it is written to, and refuses any other (a pose moved
+    to another group, a weight other than 1, a negative entry that keeps
+    the sums, a group count not dividing Np)."""
+    n, nc = 120, 6
+    rmat = (torch.arange(n)[:, None] // 20 == torch.arange(nc)[None]).float()
+    if case == "groups":
+        assert fp._coarse_group(rmat, n) == 20
+        # checked once per tensor; written to, it is checked again
+        assert fp._coarse_group(rmat, n) == 20
+        rmat[7] = torch.roll(rmat[7], 1)
+        with pytest.raises(ValueError):
+            fp._coarse_group(rmat, n)
+        return
+    if case == "not_dividing":
+        rmat = rmat[:, :5].contiguous()
+    elif case == "moved":
+        rmat[7] = torch.roll(rmat[7], 1)
+    elif case == "scaled":
+        rmat[7, 0], rmat[8, 0] = 2.0, 0.0
+    else:
+        rmat[7, 1], rmat[8, 0] = -1.0, 2.0
+    with pytest.raises(ValueError):
+        fp._coarse_group(rmat, n)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("restart,chunks", [(True, 2), (False, 2),
                                             (True, 60), (False, 60)])
 def test_band_kernel_matches_plain_version(cuda, restart, chunks):
-    """Two chunks: a few slabs; sixty: 60 chunks x 2 windows x 3
-    components x 256 rows cut into slabs of 32 columns, more slabs than
-    blocks, so blocks walk several slabs and copy the next while working."""
+    """Two chunks: a few bands; sixty: 60 chunks x 2 windows x 3
+    components x 256 rows cut into bands of 32 columns, more units than
+    clusters, so clusters walk several and copy the next while working."""
     op, pre, rhs = _tiny_band(np_=1000 if chunks > 2 else 300,
                               n_chunks=chunks,
                               w_row=256 if chunks > 2 else 128)
@@ -379,6 +612,99 @@ def test_band_kernel_matches_plain_version(cuda, restart, chunks):
     assert float((ker.x - ref.x).abs().max() / ref.x.abs().max()) <= 1e-4
     assert float((ker.rt - ref.rt).abs().max()) <= \
         1e-4 * float(rhs.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("restart", [True, False])
+@pytest.mark.parametrize("cluster,cols,w_row,np_", [
+    (1, 64, 128, 2000), (2, 64, 256, 1000), (4, 64, 256, 1000),
+    (8, 128, 256, 1000), (16, 64, 256, 1000), (16, 128, 128, 2000),
+    ("slab", 16, 256, 1000), ("slab", 4, 256, 1000)])
+def test_band_kernel_at_every_cluster_size(cuda, cluster, cols, w_row, np_,
+                                           restart):
+    """B2 with its plan forced to each cluster size (blocks splitting a
+    band's 1536 rows, or 768 where one block takes them all, their partial
+    t exchanged in shared memory across the cluster), to both band widths
+    and to wide and narrow slabs, with a coarse level over 10 groups:
+    against the plain version, the same bits on a rerun, and no spilled
+    register in any instantiation.  The 768-row system spreads its 60
+    chunks over 2000 poses: over 1000 its carried chunk leaves the f32
+    plain version as far from its own float64 run as the tolerance."""
+    op, pre, rhs = _tiny_band(np_=np_, n_chunks=60, w_row=w_row, nc=10)
+    op, pre, rhs = _to(op, cuda), _to(pre, cuda), rhs.to(cuda)
+    st, atol2 = _start(rhs)
+    if not restart:
+        st = fp.band_fused_pcg_chunk_ref(op, pre, rhs, st, atol2, 200, True, 8)
+    force = (dict(slab=True, cols=cols) if cluster == "slab"
+             else dict(slab=False, cluster=cluster, cols=cols))
+    plan = fp.band_schedule(0, 60, 2, 3, w_row, 128, 2, **force)
+    assert plan.cols == cols and plan.slab == (cluster == "slab")
+    before = fp.band_fused_pcg_chunk.launches
+    ker = fp._band_launch(op, pre, rhs, st, atol2, 200, restart, 8, **force)
+    again = fp._band_launch(op, pre, rhs, st, atol2, 200, restart, 8, **force)
+    torch.cuda.synchronize()
+    assert fp.band_fused_pcg_chunk.launches == before + 2
+    ref = fp.band_fused_pcg_chunk_ref(op, pre, rhs, st, atol2, 200, restart, 8)
+    assert int(ker.it) == int(ref.it) and int(ker.stop) == int(ref.stop)
+    assert float((ker.x - ref.x).abs().max() / ref.x.abs().max()) <= 1e-4
+    assert float((ker.rt - ref.rt).abs().max()) <= \
+        1e-4 * float(rhs.abs().max())
+    for name in fp.ChunkState._fields:
+        assert torch.equal(getattr(ker, name), getattr(again, name)), name
+    for dp in fp.KERNEL_DPS:
+        for c in fp.BAND_COLS[dp]:
+            assert fp.band_kernel_attrs(dp, c)["local_bytes"] == 0, (dp, c)
+        assert fp.band_kernel_attrs(dp, 16, slab=True)["local_bytes"] == 0
+
+
+@pytest.mark.cuda
+def test_band_kernel_with_rows_the_cluster_does_not_divide(cuda):
+    """Cluster bands over rows that the cluster does not divide: 2 windows
+    x 3 components x 30 rows = 180 a chunk over 8 blocks of parts of 24
+    rows, so the last rank's TMA box reaches 12 rows into the next chunk
+    (for the last chunk, into the zero fill past the stack), rows the
+    kernel must mask off.  First the matvec alone, where a row read past
+    the share would move the result by a fifth: with T = 0 and no wide
+    column, a launch of no iteration returns rhs - S x = V V^T x in its
+    true residual, held within 1e-5 of the plain version's largest entry.
+    Then a chunk of 8 iterations with a coarse level against the plain
+    version, and the same bits on a rerun of each."""
+    op, pre, rhs = _tiny_band(np_=1000, n_chunks=60, w_row=30, nc=10)
+    force = dict(slab=False, cluster=8, cols=128)
+    plan = fp.band_schedule(0, 60, 2, 3, 30, 128, 2, **force)
+    assert (plan.rows, plan.parts, plan.pr) == (180, 1, 24)
+    zero = torch.zeros_like(op.tdiag)
+    vop = op._replace(tdiag=zero, tupper=zero, tlower=zero, u=None)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=rhs.shape).astype(np.float32))
+    z = torch.zeros_like(x)
+    st = fp.ChunkState(x=x, r=z, p=z, rt=z,
+                       it=torch.zeros(1, dtype=torch.int32),
+                       rz=torch.zeros(1),
+                       stop=torch.zeros(1, dtype=torch.int32),
+                       rr=torch.zeros(1))
+    vop, vpre, st = _to(vop, cuda), _to(pre, cuda), _to(st, cuda)
+    atol0 = torch.zeros(1, device=cuda)
+    mv = [fp._band_launch(vop, vpre, st.rt, st, atol0, 200, True, 0, **force)
+          for _ in range(2)]
+    want = fp.band_fused_pcg_chunk_ref(vop, vpre, st.rt, st, atol0, 200,
+                                       True, 0).rt
+    assert float(want.abs().max()) > 0
+    assert float((mv[0].rt - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
+    assert torch.equal(mv[0].rt, mv[1].rt)
+
+    op, pre, rhs = _to(op, cuda), _to(pre, cuda), rhs.to(cuda)
+    st, atol2 = _start(rhs)
+    ker = fp._band_launch(op, pre, rhs, st, atol2, 200, True, 8, **force)
+    again = fp._band_launch(op, pre, rhs, st, atol2, 200, True, 8, **force)
+    ref = fp.band_fused_pcg_chunk_ref(op, pre, rhs, st, atol2, 200, True, 8)
+    assert int(ker.it) == int(ref.it) and int(ker.stop) == int(ref.stop)
+    assert float((ker.x - ref.x).abs().max() / ref.x.abs().max()) <= 1e-4
+    assert float((ker.rt - ref.rt).abs().max()) <= \
+        1e-4 * float(rhs.abs().max())
+    for name in fp.ChunkState._fields:
+        assert torch.equal(getattr(ker, name), getattr(again, name)), name
 
 
 @pytest.mark.cuda
@@ -446,7 +772,7 @@ def test_dp6_resident_kernel_matches_plain_version(cuda, np_, mw, restart):
 @pytest.mark.parametrize("restart", [True, False])
 def test_dp6_band_kernel_matches_plain_version(cuda, restart):
     """band_fused_pcg_chunk_kernel<6>: 60 chunks x 2 windows x 6 components
-    x 256 rows, more slabs than blocks."""
+    x 256 rows, more units than clusters."""
     op, pre, rhs = _tiny_band(np_=1000, n_chunks=60, w_row=256, dp=6)
     op, pre, rhs = _to(op, cuda), _to(pre, cuda), rhs.to(cuda)
     st, atol2 = _start(rhs)

@@ -20,8 +20,11 @@ per chunk to the host.
   cluster (:func:`b1_layout`);
 * band (``csrc/band_fused_pcg_chunk.cu``, :func:`band_fused_pcg_chunk`):
   for large graphs, V as the tile stack of ``ops/band_plan.py`` streamed
-  from device memory once per matvec by a cooperative grid of one block
-  per SM (:func:`band_slab_plan`), plus a few full-height wide columns.
+  from device memory once per matvec by a cooperative grid, plus a few
+  full-height wide columns; per layout (:func:`band_tile_plan`) either
+  whole-height column slabs of a slab-major copy, one block each, or, for
+  taller chunks, column bands of the stack as built, each split by rows
+  over a thread-block cluster.
 
 Both kernels are instantiated for SE(2) (dp=3, landmarks dl=2) and SE(3)
 BA (dp=6, dl=3), ``KERNEL_DPS``.  :func:`fused_mode` picks one.  The preconditioner is PCR on the chain
@@ -496,93 +499,203 @@ def b1_layout(dp: int, np_: int, mw: int, nc: int, smem_limit: int,
 
 BAND_THREADS = 256   # kThreads in csrc/band_fused_pcg_chunk.cu
 BAND_WIDE_SEG = 1024  # kWideSeg: poses per wide-column partial
-# SMs of an H100: the band kernel's grid (one block per SM) on the card the
-# gate plans for; the wrapper re-plans with the device's own count
-H100_SMS = 132
+BAND_MAX_PARTS = 8    # kMaxParts: parts of a block's rows
+BAND_MAX_SLOTS = 16   # kMaxSlots: parts the ring holds at most
+# cluster sizes: 8 is the largest portable one, 16 the largest an H100 runs
+BAND_CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# cluster-band widths built per pose block size (two or four whole TMA
+# boxes of 32 columns; csrc/band_fused_pcg_chunk.cu::kernel_for): those a
+# path's plan takes (100k: 64, the 10k revisit row: 128; dp=6 takes slabs)
+BAND_COLS = {3: (128, 64), 6: ()}
+# the narrowest whole-height slab the slab schedule takes: a chunk's w
+# partials (one per row per slab) stay below a quarter of its bytes
+BAND_SLAB_MIN_COLS = 16
+# Clusters of each size that an H100 runs at once at one block per SM
+# (cudaOccupancyMaxActiveClusters on an H100 80GB HBM3 at 120-227 KB of
+# shared memory a block): the band kernel's grid on the card the gate plans
+# for; the wrapper re-plans with the device's own count
+H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 
 
 def _round4(v: int) -> int:
     return (v + 3) & ~3
 
 
-def band_smem_bytes(rows: int, cols: int, mw: int) -> int:
-    """Dynamic shared memory of one block of the band kernel: a slab of
-    ``rows`` tile rows by ``cols`` columns, the state values of its rows,
-    ``t`` over its columns, the row-group combination buffer, ``u^T v`` and
-    the reduction slots (mirrors ``smem_layout`` in
+def band_row_split(rows: int, cluster: int) -> tuple[int, int]:
+    """How ``cluster`` blocks split a chunk's ``rows``: ``(parts, pr)``,
+    each block's share as ``parts`` parts of ``pr`` rows (a multiple of 8,
+    at most ``BAND_THREADS``; mirrors ``row_split`` in
     csrc/band_fused_pcg_chunk.cu)."""
-    return 4 * (rows * cols + _round4(rows) + _round4(cols)
-                + 4 * BAND_THREADS + _round4(mw) + 64)
+    rpb = -(-rows // cluster)
+    parts = -(-rpb // BAND_THREADS)
+    return parts, (-(-rpb // parts) + 7) & ~7
 
 
-class BandSlabPlan(NamedTuple):
-    """How the band kernel cuts each chunk's ``rows = K*dp*Wrow`` tile rows
-    by columns into slabs, one per block at a time, and deals them to the
-    blocks."""
+def band_smem_bytes(pr: int, cols: int, slots: int, mw: int) -> int:
+    """Dynamic shared memory of one block of the band kernel: a ring of
+    ``slots`` parts, each ``pr`` rows of a band by ``cols`` columns and the
+    rows' state values, the cluster-visible partial t (two buffers), t, the
+    row-group combination buffer, ``u^T v``, the reduction slots and an
+    mbarrier per slot (mirrors ``smem_layout`` in
+    csrc/band_fused_pcg_chunk.cu)."""
+    floats = (slots * pr * (cols + 1) + 3 * cols + 4 * BAND_THREADS
+              + _round4(mw) + 64)
+    return 4 * (((floats + 1) & ~1) + 2 * slots)
 
-    rows: int              # tile rows per chunk (every slab holds them all)
-    cols: int              # columns per slab
-    slabs_per_chunk: int   # B*dl / cols
-    slabs_per_block: int   # the most slabs one block walks per matvec
-    smem_bytes: int        # dynamic shared memory per block
+
+class BandTilePlan(NamedTuple):
+    """How the band kernel cuts each chunk's ``rows = K*dp*Wrow`` tile
+    rows and ``B*dl`` columns.  The slab schedule (``slab``): units of one
+    whole-height slab of ``cols`` columns each, one block's, read from a
+    slab-major copy of the stack.  The cluster-band schedule: bands of
+    ``cols`` columns, each held by one cluster whose blocks split its rows
+    (``parts`` parts of ``pr`` rows a block, streamed through a ring of
+    ``slots`` parts), and units of ``bands / segments`` consecutive bands
+    dealt to the clusters."""
+
+    slab: bool              # the slab schedule (else cluster bands)
+    rows: int               # tile rows per chunk
+    cluster: int            # blocks per cluster, splitting a band's rows
+    parts: int              # parts of a block's rows
+    pr: int                 # rows per part
+    cols: int               # columns per band
+    bands: int              # bands per chunk, B*dl / cols
+    segments: int           # units per chunk: one w partial each per row
+    slots: int              # parts in the ring (at least a band's)
+    clusters: int           # clusters in the cooperative grid
+    units_per_cluster: int  # the most units one cluster walks per matvec
+    smem_bytes: int         # dynamic shared memory per block
+
+    @property
+    def grid(self) -> int:
+        return self.clusters * self.cluster
+
+    @property
+    def rows_per_block(self) -> int:
+        return self.parts * self.pr
 
 
-def band_slab_plan(n_chunks: int, k_win: int, dp: int, w_row: int,
+def _slab_cols(rows: int, b_dl: int, mw: int, smem_limit: int,
+               cols: int | None) -> int | None:
+    """The widest whole-height slab (a multiple of 4 columns dividing B*dl,
+    a float4 per thread at most; or the forced ``cols``) whose ``rows``
+    fit one block's shared memory, or None."""
+    for c in ((cols,) if cols else range(min(b_dl, 4 * BAND_THREADS), 3, -4)):
+        if b_dl % c == 0 and band_smem_bytes(rows, c, 1, mw) <= smem_limit:
+            return c
+    return None
+
+
+def band_tile_plan(n_chunks: int, k_win: int, dp: int, w_row: int,
                    b_dl: int, mw: int, smem_limit: int,
-                   grid: int) -> BandSlabPlan:
-    """The slab schedule for a shared-memory limit per block and a grid of
-    blocks: the widest slab (a divisor of B*dl, a multiple of 4 columns, at
-    most 4 per thread) whose rows all fit in shared memory.  Raises when
-    not even 4 columns fit.  No block ever waits on another inside the slab
-    phase, so the grid puts no bound on the slab count."""
+                   clusters: dict[int, int], cluster: int | None = None,
+                   cols: int | None = None,
+                   slab: bool | None = None) -> BandTilePlan:
+    """The band kernel's schedule under a shared-memory limit per block,
+    given how many clusters of each size the card runs at once (``slab``,
+    ``cluster`` and ``cols`` force a schedule, a cluster size, a width).
+
+    The slab schedule where a whole-height slab of at least
+    ``BAND_SLAB_MIN_COLS`` columns fits a block (the widest that does):
+    contiguous slabs and no cluster exchange (10k poses, 3072 rows a
+    chunk, 16 columns).  Else cluster bands: each cluster size R
+    (``BAND_CLUSTER_SIZES``) and band width built at this dp
+    (``BAND_COLS``; none at dp=6, whose layouts take slabs) whose ring
+    holds a band's parts; of those the widest band (each band costs a t
+    combine and a cluster exchange that the stream does not hide, and its
+    rows copy longer contiguous runs of the stack), then the smallest R
+    (more clusters, a cheaper cluster barrier) (100k poses, 7680 rows, 16
+    x 64; the 10k revisit row, 4608 rows, 16 x 128).  Then the fewest
+    segments per chunk whose units deal to the clusters within 2 % as
+    evenly as the best (each segment adds a w partial per row and a
+    gather term), and the deepest ring that fits (at most
+    ``BAND_MAX_SLOTS``).  Raises when nothing fits."""
     rows = k_win * dp * w_row
     if rows % 4:
         raise ValueError(f"band kernel: K*dp*Wrow={rows} rows per chunk "
                          "must be a multiple of 4 (16-byte copies)")
-    for cols in range(min(b_dl, 4 * BAND_THREADS), 3, -4):
-        if b_dl % cols == 0 and band_smem_bytes(rows, cols, mw) <= smem_limit:
-            spc = b_dl // cols
-            return BandSlabPlan(rows, cols, spc, -(-n_chunks * spc // grid),
-                                band_smem_bytes(rows, cols, mw))
-    raise ValueError(
-        f"band kernel: a slab of {rows} rows does not fit in {smem_limit} "
-        "B of shared memory even at 4 columns")
+    if (slab or (slab is None and cluster is None and cols is None)) \
+            and clusters.get(1, 0) >= 1:
+        sc = _slab_cols(rows, b_dl, mw, smem_limit, cols if slab else None)
+        if sc is not None and (slab or sc >= BAND_SLAB_MIN_COLS):
+            bands = b_dl // sc
+            return BandTilePlan(True, rows, 1, 1, rows, sc, bands, bands, 1,
+                                clusters[1], -(-n_chunks * bands // clusters[1]),
+                                band_smem_bytes(rows, sc, 1, mw))
+    if slab:
+        raise ValueError(f"band kernel: no slab of {rows} rows fits in "
+                         f"{smem_limit} B of shared memory")
+    widths = BAND_COLS.get(dp, ())
+    if not widths:
+        raise ValueError(f"band kernel: no slab of {rows} rows fits and no "
+                         f"cluster band is built at dp={dp}")
+    if cols is not None and cols not in widths:
+        raise ValueError(f"band kernel: no cluster band of {cols} columns is "
+                         f"built at dp={dp} ({widths})")
+    best = None
+    for r in ((cluster,) if cluster else BAND_CLUSTER_SIZES):
+        parts, pr = band_row_split(rows, r)
+        if clusters.get(r, 0) < 1 or parts > BAND_MAX_PARTS:
+            continue
+        for c in ((cols,) if cols else widths):
+            slots = min(BAND_MAX_SLOTS, (smem_limit - band_smem_bytes(
+                pr, c, 0, mw)) // (4 * pr * (c + 1) + 8))
+            if b_dl % c or slots < parts:
+                continue
+            key = (c, -r)
+            if best is None or key > best[0]:
+                best = (key, r, parts, pr, c, slots)
+    if best is None:
+        raise ValueError(
+            f"band kernel: a band of {rows} rows does not fit in "
+            f"{smem_limit} B of shared memory at any cluster size")
+    _, r, parts, pr, c, slots = best
+    bands, ncl = b_dl // c, clusters[r]
+
+    def balance(s):
+        units = n_chunks * s
+        return units / (ncl * -(-units // ncl))
+
+    segs = [s for s in range(1, bands + 1) if bands % s == 0]
+    top = max(balance(s) for s in segs)
+    seg = min(s for s in segs if balance(s) >= top - 0.02)
+    while band_smem_bytes(pr, c, slots, mw) > smem_limit:
+        slots -= 1
+    return BandTilePlan(False, rows, r, parts, pr, c, bands, seg, slots, ncl,
+                        -(-n_chunks * seg // ncl),
+                        band_smem_bytes(pr, c, slots, mw))
 
 
 def band_workspace_floats(dp: int, np_: int, n_chunks: int,
-                          plan: BandSlabPlan, b_dl: int, mw: int, nc: int,
-                          grid: int) -> int:
+                          plan: BandTilePlan, mw: int, nc: int) -> int:
     """Workspace floats of one launch: seven [dp, Np] vectors, the matvec
-    input at the window rows, the w-pass rows per slab, the wide partials,
-    the blocks' coarse restriction shares, the coarse scratch and the
-    partial sums (mirrors ``layout`` in csrc/band_fused_pcg_chunk.cu)."""
+    input at the window rows, the w rows per unit, the wide partials, the
+    coarse scratch and the partial sums (mirrors ``layout`` in
+    csrc/band_fused_pcg_chunk.cu)."""
     o = _round4(7 * dp * np_)
-    cells = n_chunks * plan.rows
-    return (o + cells + plan.slabs_per_chunk * cells
-            + -(-np_ // BAND_WIDE_SEG) * mw + grid * dp * nc + 2 * dp * nc
-            + 2 * grid * 4)
+    return (o + n_chunks * plan.rows + n_chunks * plan.segments * plan.rows
+            + -(-np_ // BAND_WIDE_SEG) * mw + 2 * dp * nc + 2 * plan.grid * 4)
 
 
 def band_device_bytes(dp: int, np_: int, band, mw: int, nlevels: int,
                       nc: int) -> int:
     """Device memory the band solve holds at once on an H100: the tile
-    stack (three times: the zeroed stack, the values written into it and
-    the kernel's slab-major copy), the wide columns, the T, PCR and
-    ``binv`` planes, the coarse level, the chunk state in and out, the
-    kernel's workspace and the cover table."""
+    stack (twice: the zeroed stack and the values written into it, and a
+    third time on the slab schedule: its slab-major copy), the wide
+    columns, the T, PCR and ``binv`` planes, the coarse level, the chunk
+    state in and out, the kernel's workspace and the cover table."""
     dd = dp * dp
     n_ck = band.n_chunks * band.k_windows
     b_dl = band.chunk_b * band.dl
-    plan = band_slab_plan(band.n_chunks, band.k_windows, dp, band.w_row,
-                          b_dl, mw, SMEM_BUDGET_BYTES, H100_SMS)
+    plan = band_tile_plan(band.n_chunks, band.k_windows, dp, band.w_row,
+                          b_dl, mw, SMEM_BUDGET_BYTES, H100_CLUSTERS)
     words = (
-        3 * n_ck * dp * band.w_row * b_dl
+        (3 if plan.slab else 2) * n_ck * dp * band.w_row * b_dl
         + dp * mw * np_
         + (4 + 2 * nlevels) * dd * np_
         + dd * nc * nc + np_ * nc
         + 9 * dp * np_
-        + band_workspace_floats(dp, np_, band.n_chunks, plan, b_dl, mw, nc,
-                                H100_SMS)
+        + band_workspace_floats(dp, np_, band.n_chunks, plan, mw, nc)
         + np_ * band.cover.shape[-1]
     )
     return 4 * words
@@ -591,7 +704,7 @@ def band_device_bytes(dp: int, np_: int, band, mw: int, nlevels: int,
 def fused_mode(cfg, graph, group=None) -> str | None:
     """The gate, from the config, the shapes and the budgets alone:
     "resident" when the resident kernel can run this graph, else "band"
-    when the graph carries a band layout (``plan.band``) whose slabs fit a
+    when the graph carries a band layout (``plan.band``) whose bands fit a
     block's shared memory and whose operands fit ``BAND_BUDGET_BYTES`` of
     device memory, else None: the plain PCG loop (``schur.schur_solve``).
 
@@ -638,13 +751,13 @@ def fused_mode(cfg, graph, group=None) -> str | None:
 
 def band_fits(dp: int, np_: int, band, mw: int, nlevels: int,
               nc: int) -> bool:
-    """Whether the band kernel can run a layout on an H100: its slabs fit
-    a block's shared memory (``band_slab_plan``) and the band solve's
+    """Whether the band kernel can run a layout on an H100: a band tile
+    fits a block's shared memory (``band_tile_plan``) and the band solve's
     operands fit ``BAND_BUDGET_BYTES`` of device memory."""
     try:
-        band_slab_plan(band.n_chunks, band.k_windows, dp, band.w_row,
+        band_tile_plan(band.n_chunks, band.k_windows, dp, band.w_row,
                        band.chunk_b * band.dl, mw, SMEM_BUDGET_BYTES,
-                       H100_SMS)
+                       H100_CLUSTERS)
     except ValueError:
         return False
     return band_device_bytes(dp, np_, band, mw, nlevels, nc) \
@@ -1018,10 +1131,11 @@ def band_fused_pcg_chunk_ref(
 
 _BAND_DIMS = ("dp", "np", "n_chunks", "k_win", "w_row", "b_dl", "mw",
               "nlevels", "nc", "cover_cap", "chunk_iters", "maxit",
-              "restart", "grid", "cols")
-_BAND_PTRS = 31
-BAND_TIMERS = ("xwin", "copy_wait", "partial_t", "w_pass", "wide",
-               "gather", "precond", "grid_sync",
+              "restart", "grid", "cluster", "cols", "segments", "group",
+              "slots", "slab")
+_BAND_PTRS = 30
+BAND_TIMERS = ("xwin", "copy_wait", "partial_t", "t_exchange", "w_pass",
+               "wide", "gather", "precond", "grid_sync",
                "other")   # the kernel's timer kinds, in order
 
 
@@ -1036,13 +1150,15 @@ def _band_library() -> ctypes.CDLL:
     pi = ctypes.POINTER(ci)
     lib.band_fused_pcg_chunk_device.argtypes = [ci, pi, pi]
     lib.band_fused_pcg_chunk_device.restype = ci
-    lib.band_fused_pcg_chunk_smem_bytes.argtypes = [ci, ci, ci]
+    lib.band_fused_pcg_chunk_smem_bytes.argtypes = [ci, ci, ci, ci]
     lib.band_fused_pcg_chunk_smem_bytes.restype = cll
-    lib.band_fused_pcg_chunk_grid.argtypes = [ci, ci, cll, pi]
-    lib.band_fused_pcg_chunk_grid.restype = ci
+    lib.band_fused_pcg_chunk_clusters.argtypes = [ci, ci, ci, ci, cll, ci, pi]
+    lib.band_fused_pcg_chunk_clusters.restype = ci
+    lib.band_fused_pcg_chunk_attrs.argtypes = [ci, ci, ci, ctypes.POINTER(cll)]
+    lib.band_fused_pcg_chunk_attrs.restype = ci
     lib.band_fused_pcg_chunk_workspace_floats.argtypes = [pi, ci]
     lib.band_fused_pcg_chunk_workspace_floats.restype = cll
-    lib.band_grid_sync_probe.argtypes = [ci, cll, ci, vp]
+    lib.band_grid_sync_probe.argtypes = [ci, ci, cll, ci, vp]
     lib.band_grid_sync_probe.restype = ci
     lib.band_fused_pcg_chunk_launch.argtypes = [
         pi, ci, ctypes.POINTER(vp), ci, vp]
@@ -1052,11 +1168,15 @@ def _band_library() -> ctypes.CDLL:
 
 @functools.cache
 def band_schedule(device_index: int, n_chunks: int, k_win: int, dp: int,
-                  w_row: int, b_dl: int,
-                  mw: int) -> tuple[int, BandSlabPlan]:
-    """The band kernel's grid (one block per SM) and slab schedule on the
-    device, for a layout; queried from the card once per (device, layout)
-    and cached (the occupancy query is made for the dp instantiation)."""
+                  w_row: int, b_dl: int, mw: int, cluster: int | None = None,
+                  cols: int | None = None,
+                  slab: bool | None = None) -> BandTilePlan:
+    """The band kernel's plan on the device for a layout
+    (:func:`band_tile_plan` under the card's shared memory, with the
+    clusters the card runs at once at the chosen size; ``slab``,
+    ``cluster`` and ``cols`` force a schedule, a size and a width);
+    queried from the card once per (device, layout) and cached.  Raises
+    when the card cannot run it."""
     lib = _band_library()
     sms, optin = ctypes.c_int(0), ctypes.c_int(0)
     err = lib.band_fused_pcg_chunk_device(device_index, ctypes.byref(sms),
@@ -1064,32 +1184,52 @@ def band_schedule(device_index: int, n_chunks: int, k_win: int, dp: int,
     if err != 0:
         raise RuntimeError(
             f"band_fused_pcg_chunk: device query failed: cudaError_t {err}")
-    plan = band_slab_plan(n_chunks, k_win, dp, w_row, b_dl, mw, optin.value,
-                          sms.value)
-    if lib.band_fused_pcg_chunk_smem_bytes(plan.rows, plan.cols, mw) \
-            != plan.smem_bytes:
+    args = (n_chunks, k_win, dp, w_row, b_dl, mw, optin.value)
+    # the schedule, size and width first (every size assumed to fit), then
+    # the segments for the card's own count of clusters of that size
+    first = band_tile_plan(*args, dict.fromkeys(BAND_CLUSTER_SIZES, 1),
+                           cluster, cols, slab)
+    if lib.band_fused_pcg_chunk_smem_bytes(first.pr, first.cols, first.slots,
+                                           mw) != first.smem_bytes:
         raise RuntimeError("band_fused_pcg_chunk: band_smem_bytes does not "
                            "mirror the kernel's shared-memory layout")
-    grid = ctypes.c_int(0)
-    err = lib.band_fused_pcg_chunk_grid(dp, device_index, plan.smem_bytes,
-                                        ctypes.byref(grid))
+    count = ctypes.c_int(0)
+    err = lib.band_fused_pcg_chunk_clusters(
+        dp, first.cols, int(first.slab), device_index, first.smem_bytes,
+        first.cluster, ctypes.byref(count))
     if err != 0:
         raise RuntimeError(
             f"band_fused_pcg_chunk: occupancy query failed: cudaError_t {err}")
-    if grid.value < 1:
+    if count.value < 1:
         raise ValueError(
-            f"band_fused_pcg_chunk: the cooperative grid does not fit on "
-            f"{torch.cuda.get_device_name(device_index)} ("
-            f"{plan.smem_bytes} B of shared memory per block)")
-    return grid.value, plan
+            f"band_fused_pcg_chunk: no cooperative grid of clusters of "
+            f"{first.cluster} fits on {torch.cuda.get_device_name(device_index)}"
+            f" ({first.smem_bytes} B of shared memory per block)")
+    return band_tile_plan(*args, {first.cluster: count.value},
+                          first.cluster if not first.slab else None,
+                          first.cols, first.slab)
 
 
-def band_grid_sync_probe(device: torch.device, iters: int) -> None:
-    """Launch ``iters`` grid barriers alone on the band kernel's grid (one
-    block per SM at the 10k layout's shared memory), to time one barrier."""
-    grid, plan = band_schedule(device.index or 0, 39, 2, 3, 512, 512, 2)
+def band_kernel_attrs(dp: int, cols: int, slab: bool = False) -> dict:
+    """The band kernel's instantiation for a pose block size and band
+    width (or the slab schedule's) as the card compiled it: its registers
+    a thread and its local memory a thread (spilled registers)."""
+    out = (ctypes.c_longlong * 2)()
+    err = _band_library().band_fused_pcg_chunk_attrs(dp, cols, int(slab), out)
+    if err != 0:
+        raise RuntimeError(
+            f"band_fused_pcg_chunk_attrs failed: cudaError_t {err}")
+    return {"registers": out[0], "local_bytes": out[1]}
+
+
+def band_grid_sync_probe(device: torch.device, iters: int,
+                         plan: BandTilePlan | None = None) -> None:
+    """Launch ``iters`` grid barriers alone on the band kernel's grid of a
+    plan (default: the 10k layout's), to time one barrier."""
+    if plan is None:
+        plan = band_schedule(device.index or 0, 39, 2, 3, 512, 512, 2)
     err = _band_library().band_grid_sync_probe(
-        grid, plan.smem_bytes, iters,
+        plan.grid, plan.cluster, plan.smem_bytes, iters,
         torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"band_grid_sync_probe failed: cudaError_t {err}")
@@ -1100,9 +1240,10 @@ _slab_major_last = None   # (weakref to a stack, its version, cols, copy)
 
 def _slab_major(tiles: torch.Tensor, cols: int) -> torch.Tensor:
     """The tile stack re-laid slab-major, ``[n_chunks, B*dl / cols, K*dp*Wrow,
-    cols]``: each slab the band kernel copies is one contiguous run.  Made
-    once per stack (one read and one write of it on the card) and kept
-    for the last stack while that tensor lives unmodified."""
+    cols]``, for the slab schedule: each slab the band kernel copies is one
+    contiguous run.  Made once per stack (one read and one write of it on
+    the card) and kept for the last stack while that tensor lives
+    unmodified."""
     global _slab_major_last
     if _slab_major_last is not None:
         ref, version, last_cols, slabs = _slab_major_last
@@ -1115,11 +1256,43 @@ def _slab_major(tiles: torch.Tensor, cols: int) -> torch.Tensor:
     return slabs
 
 
+_coarse_group_last = None   # (weakref to an rmat, its version, Np, group)
+
+
+def _coarse_group(rmat: torch.Tensor, n: int) -> int:
+    """The poses per group of a coarse restriction that the band kernel
+    takes: ``rmat [Np, nc]`` must be the 0/1 matrix of consecutive groups of
+    ``Np / nc`` poses (the one ``_coarse_operands`` builds).  Checked on
+    the device (entries non-negative, summing to Np, 1 at each pose's own
+    group): one read of rmat and one host sync, once per rmat while that
+    tensor lives unmodified.  Raises otherwise."""
+    global _coarse_group_last
+    nc = rmat.shape[1]
+    group = n // nc
+    if group * nc != n:
+        raise ValueError(f"band_fused_pcg_chunk: {nc} coarse groups do not "
+                         f"divide Np={n}")
+    if _coarse_group_last is not None:
+        ref, version, last_n, last_group = _coarse_group_last
+        if ref() is rmat and rmat._version == version and last_n == n:
+            return last_group
+    q = torch.arange(n, device=rmat.device)
+    ok = ((rmat.amin() >= 0) & (rmat.sum() == n)
+          & (rmat[q, q // group].amin() >= 1))
+    if not bool(ok):
+        raise ValueError("band_fused_pcg_chunk: rmat is not the 0/1 "
+                         f"restriction of consecutive groups of {group} poses")
+    _coarse_group_last = (weakref.ref(rmat), rmat._version, n, group)
+    return group
+
+
 def _band_launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters,
-                 timing=None):
+                 timing=None, cluster=None, cols=None, slab=None):
     """Check, allocate and launch one band chunk.  ``timing``, an int64
     tensor [grid, len(BAND_TIMERS)] on the device (grid from
-    :func:`band_schedule`), receives each block's clock64 cycles per kind."""
+    :func:`band_schedule`), receives each block's clock64 cycles per kind;
+    ``slab``, ``cluster`` and ``cols`` force the plan's schedule, cluster
+    size and band width."""
     dev = rhs.device
     dp, n = rhs.shape
     nch, k_win, _, w_row, b_dl = op.tiles.shape
@@ -1138,9 +1311,6 @@ def _band_launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters,
             f"band_fused_pcg_chunk: B*dl={b_dl} must be a multiple of 128 "
             f"and Wrow={w_row} positive"
         )
-    if nch * k_win * dp * max(w_row, b_dl) >= 2**31:
-        raise ValueError("band_fused_pcg_chunk: the partial buffers "
-                         "overflow the kernel's 32-bit offsets")
     vec = (dp, n)
     planes = (dp, dp, n)
     checks = [
@@ -1167,24 +1337,31 @@ def _band_launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters,
         raise ValueError("rmat given without cinv")
     for name, t, shape, dtype in checks:
         _check(name, t, shape, dtype, dev)
+    group = _coarse_group(pre.rmat, n) if has_coarse else 0
 
     lib = _band_library()
-    grid, plan = band_schedule(dev.index or 0, nch, k_win, dp, w_row, b_dl,
-                               mw)
+    plan = band_schedule(dev.index or 0, nch, k_win, dp, w_row, b_dl, mw,
+                         cluster, cols, slab)
+    if nch * plan.segments * plan.rows >= 2**31:
+        raise ValueError("band_fused_pcg_chunk: the partial buffers "
+                         "overflow the kernel's 32-bit offsets")
     if timing is not None:
-        _check("timing", timing, (grid, len(BAND_TIMERS)), torch.int64, dev)
+        _check("timing", timing, (plan.grid, len(BAND_TIMERS)), torch.int64,
+               dev)
     dims = dict(dp=dp, np=n, n_chunks=nch, k_win=k_win, w_row=w_row,
                 b_dl=b_dl, mw=mw, nlevels=nl, nc=nc, cover_cap=cap,
                 chunk_iters=chunk_iters, maxit=int(maxit),
-                restart=int(bool(restart)), grid=grid, cols=plan.cols)
+                restart=int(bool(restart)), grid=plan.grid,
+                cluster=plan.cluster, cols=plan.cols,
+                segments=plan.segments, group=group, slots=plan.slots,
+                slab=int(plan.slab))
     c_dims = (ctypes.c_int * len(_BAND_DIMS))(*(dims[k] for k in _BAND_DIMS))
     ws_floats = lib.band_fused_pcg_chunk_workspace_floats(
         c_dims, len(_BAND_DIMS))
     if ws_floats < 0:
         raise ValueError("band_fused_pcg_chunk: the kernel refused the "
                          f"dimensions {dims}")
-    if ws_floats != band_workspace_floats(dp, n, nch, plan, b_dl, mw, nc,
-                                          grid):
+    if ws_floats != band_workspace_floats(dp, n, nch, plan, mw, nc):
         raise RuntimeError("band_fused_pcg_chunk: band_workspace_floats "
                            "does not mirror the kernel's workspace layout")
     work = torch.empty(ws_floats, dtype=_f32, device=dev)
@@ -1202,11 +1379,11 @@ def _band_launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters,
     def ptr(t):
         return None if t is None or t.numel() == 0 else t.data_ptr()
 
+    tiles = _slab_major(op.tiles, plan.cols) if plan.slab else op.tiles
     ptrs = [
         atol2, st.it, st.rz, st.stop, rhs, st.x, st.r, st.p, st.rt,
-        _slab_major(op.tiles, plan.cols), op.win_off, op.cover, op.u,
-        op.tdiag, op.tupper,
-        op.tlower, pre.alphas, pre.gammas, pre.binv, pre.cinv, pre.rmat,
+        tiles, op.win_off, op.cover, op.u, op.tdiag, op.tupper,
+        op.tlower, pre.alphas, pre.gammas, pre.binv, pre.cinv,
         out.x, out.r, out.p, out.rt, out.it, out.rz, out.stop, out.rr, work,
         timing,
     ]

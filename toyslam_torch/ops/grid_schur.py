@@ -287,28 +287,35 @@ def _matvec_factory(d: _GridSystem, hll_inv: torch.Tensor, gp: GridPlan,
 
 # The band-vs-grid cost model of pcg_backend="auto", per GN iteration of
 # ``iters`` PCG iterations, fitted on an NVIDIA H100 80GB HBM3 at a 700 W
-# power limit from the grid_gate_fit line of chip_smoke.py (PERF.md)
-# at three layouts (tile stacks of 49, 179 and 245 MB):
+# power limit from the grid_gate_fit, band100k_gate_fit and
+# incr100k_gate_fit lines of chip_smoke.py (PERF.md) at four layouts (tile
+# stacks of 49, 179 and 245 MB and 3.05 GB):
 #   band = _BAND_GN_S + iters * (_BAND_TRIP_S + stack_bytes / _BAND_STREAM_BW)
 #   grid = iters * _GRID_ITER_S
-# The band operator's build (tile write and slab-major copy) took 0.75-1.03
-# ms with no growth from 49 to 245 MB; a B2 trip 0.10-0.28 ms, whose least-
-# squares line is 78 us + bytes at 1.19 TB/s; the plain grid loop 3.3-4.2 ms
-# per iteration at 4096 and 10240 poses alike (launch-bound: ~150 small
-# kernels per iteration).  The TPU model's per-window and per-row terms
-# fitted to nothing measurable here and are gone.
+# A B2 trip took 88-196 us at 49-245 MB and 1.63-1.69 ms at 3.05 GB with
+# jacobi+coarse, whose least-squares line is 72 us + bytes at 1.93 TB/s
+# (2.01-2.03 ms at 3.05 GB with tridiag+coarse: 17 PCR levels, 1568
+# coarse groups); the band operator's build (the tile write) 0.42-1.42 ms
+# at 49-245 MB.  The plain grid loop is launch-bound: an iteration took
+# 1.34-4.82 ms with tridiag+coarse at 4096 and 10240 poses and 2.40-2.80
+# at 100352, and 0.55-1.45 ms with jacobi+coarse at 100352.  The model
+# takes the cheapest, 0.55 ms: "auto" takes the band only where it beats
+# the plain loop at its best.
 #
-# The line does not hold far beyond the fitted stacks.  On the same card,
-# at the 100k-pose layout (a 3.05 GB stack, 4-column slabs) a B2 trip took
-# 7.1-7.4 ms where the line gives 2.6, the plain grid loop 1.7-2.9 ms per
-# iteration, and the loop ran 2.9-4.7 times as many GN iterations per second
-# (the band100k lines of chip_smoke.py, PERF.md).  Where B2 falls
-# behind between 245 MB and 3.05 GB is not measured, so "auto" declines
-# every stack larger than the largest fitted one.
-_BAND_GN_S = 0.9e-3
-_BAND_TRIP_S = 7.8e-5
-_BAND_STREAM_BW = 1.19e12
-_GRID_ITER_S = 3.8e-3
+# Stacks above the 10k rows' 245 MB are declined.  At the one larger
+# layout measured (3.05 GB, 100k poses) B2 lost to the plain loop with
+# jacobi+coarse (8.0 against 16.5 GN-iter/s, band100k_path); with
+# tridiag+coarse it ran more GN iterations a second (4.5-4.8 against
+# 3.2-3.7) but the route, which restarts the PCG direction at every chunk
+# of 16 where the loop restarts every 30, left the 100k plateau rows at a
+# worse chi^2 (plateau-100k-revisit-incr-init stopped by the penalty rule
+# at 1.77e6 after 33 of 80 iterations, failing its gate; the plain loop
+# ends at 2.25e5-2.29e5): no faster to their stated quality.  Stacks between 245
+# MB and 3.05 GB are not measured.
+_BAND_GN_S = 1.0e-3
+_BAND_TRIP_S = 7.2e-5
+_BAND_STREAM_BW = 1.93e12
+_GRID_ITER_S = 0.55e-3
 _BAND_FIT_MAX_BYTES = 250_000_000
 
 
@@ -323,8 +330,9 @@ def _cost_model(cfg, gp: GridPlan) -> tuple[float, float]:
 
 def _band_cost_wins(cfg, gp: GridPlan, n: int) -> bool:
     """Whether the band kernel is modeled cheaper than the plain grid loop
-    (:func:`_cost_model`) on a stack within the model's fitted range.  Used
-    for ``pcg_backend="auto"`` only; "fused" forces the band."""
+    (:func:`_cost_model`) on a stack within the range where its route was
+    measured to pay.  Used for ``pcg_backend="auto"`` only; "fused" forces
+    the band."""
     if gp.band.tile_bytes > _BAND_FIT_MAX_BYTES:
         return False
     t_band, t_grid = _cost_model(cfg, gp)

@@ -24,11 +24,11 @@ layout, which the plain rows ignore) and moved to the device once.  Per row
 (``toyslam_torch.scripts.bench_suite.bench_one``): one warm-up optimize
 whose launches are counted, then ``rounds`` rounds of ``reps`` optimizes
 (the JAX script's 3 x 1).  Before the first row the band gate of the
-port's own budgets (``grid_schur._band_mode``: the slab plan and
+port's own budgets (``grid_schur._band_mode``: the band tile plan and
 ``fused_pcg.BAND_BUDGET_BYTES``, not TPU VMEM) must take the band rows;
 ``band_layout`` gives the JAX formula's ``tile_stack_gb`` (the f32 stack
-at dl=2) beside what the port holds: the stack and B2's slab-major copy
-of it (``port_stack_bytes``) and all the band solve's operands
+at dl=2) beside what the port holds: the stack, which B2 reads as built
+(``port_stack_bytes``), and all the band solve's operands
 (``band_device_bytes``).  The summary line has ``chi2_match_rel`` (the
 final chi^2 of the two cap-60 jacobi rows), ``speedup_vs_grid_jacobi``
 and ``speedup_vs_grid_tridiag`` (the band row over each plain row).
@@ -134,7 +134,7 @@ def band_layout(gdev, cfg) -> dict:
     return {"chunk_b": b.chunk_b, "k_windows": b.k_windows,
             "w_row": b.w_row, "n_wide": b.n_wide, "n_chunks": b.n_chunks,
             "tile_stack_gb": stack_gb,
-            "port_stack_bytes": 2 * b.tile_bytes,
+            "port_stack_bytes": b.tile_bytes,
             "band_device_bytes": fp.band_device_bytes(
                 3, n_pad, b, 2 * b.n_wide, 0,
                 n_pad // cfg.pcg_coarse_group)}
