@@ -23,7 +23,8 @@ Run from the root of a checkout.  Phases, each of which must pass:
    dead-reckoning ATE 6.5673, chi^2 first 228733.5 at rtol 1e-4 and final
    27524.9 at rtol 1e-3) with the launch counts;
 4. timing, fenced with torch.cuda.synchronize(): GN-iter/s as the median of
-   5 rounds x 20 optimize() calls; the time of each layer of one GN
+   3 rounds x 20 optimize() calls (cut from 5 with phase 31; phase 29's
+   headline times the same path); the time of each layer of one GN
    iteration; one chunk of B1 vs the plain version and its bound (CUDA
    events), on a cluster of 8 and of 16 blocks, and B1's per-phase
    clock64 split;
@@ -63,8 +64,8 @@ Run from the root of a checkout.  Phases, each of which must pass:
 12. the BA scale path: ``make_ba_problem(512, 4096, 24, seed=0)`` with the
    exp_ba512 fused row and its matched-budget row through B2 (B1 launched
    no time), checked against ``BA_REF``;
-13. their timing, as in phase 11 but the median of 2 rounds (cut from 3
-   when the sharded phases 24-27 lengthened the smoke);
+13. their timing, as in phase 11 but one round (cut from 3 when the
+   sharded phases 24-27 lengthened the smoke, and from 2 with phase 31);
 14. the plain PCG loop (``pcg_backend="xla"``) on the main path (PCG
    iterations 35, 35, 34, 33, 33, 32, 32, 32, 31, 31 and the phase-3
    values), the 10k scale path (the phase-7 values: they are the JAX
@@ -184,6 +185,20 @@ Run from the root of a checkout.  Phases, each of which must pass:
    Np=1088, L=8/11 and L=0) on the fused rows' own GN-iteration-0 systems:
    the operator within 1e-5, the solve within 1e-3, one chunk timed
    against its plain version and its bound.
+31. ``b1_layouts``: B1 at each of its paths' layouts (``B1_LAYOUTS``: the
+   main path, the ba3d defaults and bench row at dp=6, multi-loop-1k, the
+   2000-pose request) on a seeded system of that shape, on every schedule
+   of its plan that fits (``fused_pcg.B1_SCHEDULES``: the one
+   replicated cluster, the split state on one cluster, the card-wide
+   grid): each held against its plain version as in
+   phase 2, timed in turns against the others and its bound, with its
+   clock64 split, its barriers a trip and their floor (line
+   ``b1_layout``); the cost of one cluster, grid and block barrier alone
+   (line ``b1_barriers``); every instantiation's registers and local
+   memory, which must be none but for the cluster schedule at dp=3, held to
+   its 8 bytes (line ``b1_kernel_attrs``); and one
+   optimize of multi-loop-1k, every launch on the card-wide schedule, held
+   to the suite's gate (line ``b1_multi_loop_path``).
 Each of phases 24-27 prints a ``dist_timing`` line (GN-iter/s at 4 and 1
 ranks beside the single-device plain loop, ms per collective) with the
 card's name and power limit: ranks that share one card take turns on it,
@@ -209,8 +224,9 @@ the grid path, at 100k and on the incrementally initialised 100k graph,
 for B1 on the serving path at both request sizes and at multi-loop-1k's
 Np=1088, with the launches of each benchmark entry point's row under
 ``bench`` and of each scale entry point's row under ``scale_entry`` with
-the new shapes' times, and for B3 at each of its five shapes); the last
-line is
+the new shapes' times, B1 by schedule under ``schedules`` with each
+schedule's launches and its times at the layouts it serves, and for B3 at
+each of its five shapes); the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device the script exits non-zero and prints no result.
 """
@@ -480,10 +496,15 @@ def fresh_state(rhs):
     )
 
 
-def chunk_fns(kernel):
-    """(kernel wrapper, plain version) of a kernel's chunk."""
+def chunk_fns(kernel, schedule=None):
+    """(kernel wrapper, plain version) of a kernel's chunk; ``schedule``
+    forces one of B1's (``fused_pcg.B1_SCHEDULES``)."""
     from toyslam_torch.ops import fused_pcg as fp
 
+    if schedule is not None:
+        def forced(*args):
+            return fp._launch(*args, schedule=schedule)
+        return forced, fp.fused_pcg_chunk_ref
     return {
         "fused_pcg_chunk": (fp.fused_pcg_chunk, fp.fused_pcg_chunk_ref),
         "band_fused_pcg_chunk": (fp.band_fused_pcg_chunk,
@@ -496,6 +517,7 @@ def reset_counts():
     from toyslam_torch.ops import fused_pcg as fp
 
     fp.fused_pcg_chunk.launches = 0
+    fp.fused_pcg_chunk.schedule_launches = dict.fromkeys(fp.B1_SCHEDULES, 0)
     fp.band_fused_pcg_chunk.launches = 0
     bmv.slab_band_matvec.launches = 0
 
@@ -509,8 +531,15 @@ def read_counts():
             "slab_band_matvec": bmv.slab_band_matvec.launches}
 
 
+def read_b1_schedules():
+    """B1's launches by schedule since the last :func:`reset_counts`."""
+    from toyslam_torch.ops import fused_pcg as fp
+
+    return dict(fp.fused_pcg_chunk.schedule_launches)
+
+
 def compare_chunks(case, op, pre, rhs, chunk=16, maxit=200, tol=1e-6,
-                   kernel="fused_pcg_chunk"):
+                   kernel="fused_pcg_chunk", schedule=None):
     """Kernel vs plain version from the same state: a fresh first chunk
     (restart) and a second chunk carrying the recurrence (no restart).
     Each kernel launch is repeated from the same state and must give the
@@ -524,7 +553,7 @@ def compare_chunks(case, op, pre, rhs, chunk=16, maxit=200, tol=1e-6,
 
     from toyslam_torch.ops import fused_pcg as fp
 
-    ker_fn, ref_fn = chunk_fns(kernel)
+    ker_fn, ref_fn = chunk_fns(kernel, schedule)
     rhs2 = float((rhs * rhs).sum())
     rhs_max = float(rhs.abs().max())
     atol2 = ((tol ** 2) * (rhs * rhs).sum()).reshape(1)
@@ -593,6 +622,186 @@ def phase_kernels(device):
     if bad:
         raise AssertionError(f"kernel disagrees with plain version: {bad}")
     return max(r["max_abs_err"] for r in out)
+
+
+# B1's layouts on the paths: (name, dp, Np, Mw, PCR levels, eps); the
+# main path, the ba3d defaults, the ba3d bench row, multi-loop-1k and the
+# 2000-pose request (Np padded to 2048), each at a chunk of 16
+B1_LAYOUTS = [
+    ("main_dp3_Np192", 3, 192, 768, 8, 1e-2),
+    ("ba3d_dp6_Np64", 6, 64, 768, 6, 1e-2),
+    ("ba128_dp6_Np128", 6, 128, 1536, 7, 1e-2),
+    ("multiloop_dp3_Np1088", 3, 1088, 768, 11, 1e-1),
+    ("serve2000_dp3_Np2048", 3, 2048, 768, 11, 1e-1),
+]
+# local memory a thread of the cluster schedule at dp=3 keeps (ptxas, sm_90a:
+# 8 bytes of spilled registers at 96 registers a thread)
+B1_DP3_CLUSTER_LOCAL = 8
+# launch shapes whose barriers are timed alone: (clusters, cluster size,
+# threads a block)
+B1_BARRIER_SHAPES = {"one_cluster_16x576": (1, 16, 576),
+                     "grid_7x16x384": (7, 16, 384),
+                     "grid_15x8x384": (15, 8, 384)}
+
+
+def b1_barrier_costs(device, smem_bytes=200 * 1024, iters=4000):
+    """The cost of one barrier alone (us, CUDA events over ``iters``) of
+    each kind (cluster, grid, block) on each of ``B1_BARRIER_SHAPES`` at
+    one block an SM."""
+    from toyslam_torch.ops import fused_pcg as fp
+
+    out = {}
+    for name, (ncl, c, th) in B1_BARRIER_SHAPES.items():
+        out[name] = {kind: cuda_ms(lambda: fp.b1_barrier_probe(
+            device, iters, kind, ncl, c, th, smem_bytes), 3) / iters * 1e3
+            for kind in fp.B1_BARRIERS}
+    return out
+
+
+def b1_barriers_per_trip(plan, nlevels, coarse):
+    """Cluster and grid barriers one CG trip of a B1 plan waits at: the
+    "cluster" schedule's two in its matvec; the split schedules' L - K + 3
+    (+1 with the coarse level; K local PCR levels), and a grid barrier on a
+    grid of clusters (the kernel's comment in csrc/fused_pcg_chunk.cu)."""
+    if not plan.split:
+        return {"cluster": 2, "grid": 0}
+    return {"cluster": nlevels - plan.local_levels + 3 + int(coarse),
+            "grid": int(plan.clusters > 1)}
+
+
+def b1_schedule_times(op, pre, rhs, chunk, schedules, reps=50):
+    """One fresh B1 chunk on each of ``schedules`` in turns (forward, then
+    backward), CUDA events."""
+    from toyslam_torch.ops import fused_pcg as fp
+
+    st = fresh_state(rhs)
+    atol2 = ((1e-6 ** 2) * (rhs * rhs).sum()).reshape(1)
+    ms = {sch: [] for sch in schedules}
+
+    def launch(sch):
+        return lambda: fp._launch(op, pre, rhs, st, atol2, 200, True, chunk,
+                                  schedule=sch)
+
+    for sch in schedules:   # warm-up, not kept (a first turn read 2.6x)
+        cuda_ms(launch(sch), 5)
+    for sch in list(schedules) + list(reversed(schedules)):
+        ms[sch].append(cuda_ms(launch(sch), reps))
+    return ms
+
+
+def phase_b1_layouts(device):
+    """B1 at every layout of ``B1_LAYOUTS`` on a seeded system of its
+    shape, on each schedule that fits it: the "cluster" schedule, "split"
+    (one cluster) and "grid" (the card-wide split schedule); the parent
+    checkout's own kernel is timed by ``toyslam_torch/scripts/bench_b1.py``
+    run from that checkout.  Each held against its plain version (fresh
+    and carried chunks, rerun bits), timed in turns against the others and
+    against its bound, with its per-phase split, its barriers a trip and
+    their floor from the measured cost of one barrier alone (line
+    ``b1_barriers``); and every instantiation's registers and local memory,
+    which must be none but ``B1_DP3_CLUSTER_LOCAL`` bytes for the cluster
+    schedule at dp=3."""
+    import torch
+
+    from toyslam_torch.ops import fused_pcg as fp
+
+    barriers = b1_barrier_costs(device)
+    log("b1_barriers " + json.dumps(barriers))
+    attrs = {f"dp{dp}_{'split' if sp else 'cluster'}":
+             fp.b1_kernel_attrs(dp, sp)
+             for dp in fp.KERNEL_DPS for sp in (False, True)}
+    log("b1_kernel_attrs " + json.dumps(attrs))
+    out = {}
+    for i, (name, dp, np_, mw, nl, eps) in enumerate(B1_LAYOUTS):
+        op, pre, rhs = synthetic_system(np_, mw, nl, 0, eps, seed=20 + i,
+                                        device=device, dp=dp)
+        plans = {}
+        for sch in fp.B1_SCHEDULES:
+            try:
+                plans[sch] = b1_plan_of(op, pre, rhs, sch)
+            except ValueError:    # the forced schedule does not fit
+                continue
+        chosen = b1_plan_of(op, pre, rhs).schedule
+        m = {"chosen": chosen, "bound": chunk_bound(op, pre, rhs, 16),
+             "ms": b1_schedule_times(op, pre, rhs, 16, list(plans)),
+             "plain_ms": chunk_times(op, pre, rhs, reps=5)["plain"],
+             "schedules": {}}
+        for sch, plan in plans.items():
+            per = b1_barriers_per_trip(plan, nl, False)
+            cost = barriers["grid_7x16x384" if plan.split
+                            else "one_cluster_16x576"]
+            floor_us = 17 * (per["cluster"] * cost["cluster"]
+                             + per["grid"] * cost["grid"])
+            m["schedules"][sch] = {
+                "plan": plan._asdict(),
+                "checks": compare_chunks(name, op, pre, rhs, schedule=sch),
+                "phase_split": b1_phase_split(
+                    op, pre, rhs, 16, statistics.mean(m["ms"][sch]), sch),
+                "barriers_per_trip": per, "barrier_floor_ms": floor_us / 1e3}
+        log("b1_layout " + json.dumps({name: m}))
+        out[name] = m
+        del op, pre, rhs
+        torch.cuda.empty_cache()
+    path = multi_loop_path(device)
+    bad = [c for m in out.values() for s in m["schedules"].values()
+           for c in s["checks"] if not c["ok"]]
+    if bad:
+        raise AssertionError(f"B1 disagrees with its plain version: {bad}")
+    # the cluster schedule at dp=3 (576 threads, 96 registers each) keeps 8
+    # bytes of spilled registers (PERF.md); every
+    # other instantiation holds none
+    spilled = {k: a for k, a in attrs.items()
+               if a["local_bytes"] and k != "dp3_cluster"}
+    if spilled or attrs["dp3_cluster"]["local_bytes"] > B1_DP3_CLUSTER_LOCAL:
+        raise AssertionError(f"B1 instantiations spill: {attrs}")
+    failed = [k for k, ok in path["checks"].items() if not ok]
+    if failed:
+        raise AssertionError(f"multi-loop-1k through B1: {failed}")
+    return {"layouts": out, "barriers_us": barriers, "attrs": attrs,
+            "multi_loop_path": path}
+
+
+def multi_loop_path(device):
+    """One optimize of the suite's multi-loop-1k row through B1 (its
+    layout takes the card-wide schedule), with the launch counts set to 0
+    just before and read just after, held to the row's chi^2 and ATE
+    (``bench_suite.SIM_REF``) (line ``b1_multi_loop_path``)."""
+    import numpy as np
+    import torch
+
+    from toyslam_torch.optimizer import GaussNewton
+    from toyslam_torch.scripts import bench_suite
+    from toyslam_torch.sim import frontend
+
+    name = "multi-loop-1k"
+    cfg = bench_suite.optimizer_config(name)
+    graph, gt, n_real = bench_suite.row_graph(name)
+    gn = GaussNewton(cfg)
+    gdev = gn._prepare(graph).to(device)
+    reset_counts()
+    res = gn.optimize(gdev)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    b1_schedules = read_b1_schedules()
+    it = res.iterations_run
+    chi2 = res.errors.cpu().numpy()[:it]
+    est = res.graph.poses.cpu().numpy()
+    ref = bench_suite.SIM_REF[name]
+    ate = frontend.ate_rmse(est[:n_real], gt)
+    m = {"chi2": [float(chi2[0]), float(chi2[-1])], "ate": ate,
+         "pcg_iters": res.pcg_iters[:it].tolist(),
+         "kernel_launches": launches, "b1_schedule_launches": b1_schedules}
+    m["checks"] = {
+        "B1 only, card-wide": launches["fused_pcg_chunk"] > 0
+        and b1_schedules["grid"] == launches["fused_pcg_chunk"]
+        and launches["band_fused_pcg_chunk"] == 0,
+        "finite": bool(np.isfinite(est).all() and np.isfinite(chi2).all()),
+        "chi2 first": math.isclose(chi2[0], ref["chi2"][0], rel_tol=1e-4),
+        "chi2 final": math.isclose(chi2[-1], ref["chi2"][1], rel_tol=1e-3),
+        "ate": abs(ate - ref["ate"]) <= 2e-3,
+    }
+    log("b1_multi_loop_path " + json.dumps(m))
+    return m
 
 
 L2_BYTES = 50 * 2**20    # the H100's L2 cache
@@ -678,6 +887,7 @@ def run_path(steps, device, **change):
     res = gn.optimize(gdev)
     est = res.graph.poses.cpu().numpy()
     launches = read_counts()
+    b1_schedules = read_b1_schedules()
     n = sim.poses_gt.shape[0]
     errors = res.errors.cpu().numpy()[: res.iterations_run]
     metrics = {
@@ -692,6 +902,7 @@ def run_path(steps, device, **change):
         "ate_rmse": frontend.ate_rmse(est[:n], sim.poses_gt),
         "ate_dead_reckoning": frontend.ate_rmse(sim.poses_dr, sim.poses_gt),
         "kernel_launches": launches,
+        "b1_schedule_launches": b1_schedules,
         "finite": bool(np.isfinite(est).all() and np.isfinite(errors).all()),
     }
     # the start state with the gather plan optimize() attached, for timing
@@ -797,10 +1008,11 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def chunk_times(op, pre, rhs, chunk=16, kernel="fused_pcg_chunk", reps=50):
+def chunk_times(op, pre, rhs, chunk=16, kernel="fused_pcg_chunk", reps=50,
+                schedule=None):
     """One fresh chunk, kernel and plain version in turns (plain, kernel,
     kernel, plain), CUDA events."""
-    ker_fn, ref_fn = chunk_fns(kernel)
+    ker_fn, ref_fn = chunk_fns(kernel, schedule)
     st = fresh_state(rhs)
     atol2 = ((1e-6 ** 2) * (rhs * rhs).sum()).reshape(1)
 
@@ -825,18 +1037,28 @@ def cluster_times(op, pre, rhs, chunk, reps=50):
     ms = {8: [], 16: []}
     for c in (8, 16, 16, 8):
         ms[c].append(cuda_ms(lambda: fp._launch(
-            op, pre, rhs, st, atol2, 200, True, chunk, cluster=c), reps))
+            op, pre, rhs, st, atol2, 200, True, chunk, schedule="cluster",
+            cluster=c), reps))
     return {f"cluster{c}": v for c, v in ms.items()} | {
-        "resident_at_16": fp.b1_schedule(rhs.device.index or 0, *rhs.shape,
-                                         op.u.shape[-1], 0).resident}
+        "resident_at_16": b1_plan_of(op, pre, rhs, "cluster").resident}
 
 
-def b1_phase_split(op, pre, rhs, chunk, chunk_ms):
+def b1_plan_of(op, pre, rhs, schedule=None):
+    """B1's plan on the card for these operands (``schedule`` forces one)."""
+    from toyslam_torch.ops import fused_pcg as fp
+
+    return fp.b1_schedule(
+        rhs.device.index or 0, *rhs.shape, op.u.shape[-1],
+        0 if pre.cinv is None else pre.cinv.shape[-1], pre.alphas.shape[0],
+        schedule)
+
+
+def b1_phase_split(op, pre, rhs, chunk, chunk_ms, schedule=None):
     """Where one B1 chunk's time goes: block 0's clock64 cycles per phase
     kind (``B1_TIMERS``: its V^T v columns, its partial V urow, the cluster
-    exchange with its two cluster barriers, the preconditioner, the rest)
-    as shares of the
-    launch, scaled by the measured chunk time."""
+    exchange with its cluster barriers, the grid exchange, the
+    preconditioner, the rest) as shares of the launch, scaled by the
+    measured chunk time."""
     import torch
 
     from toyslam_torch.ops import fused_pcg as fp
@@ -845,7 +1067,8 @@ def b1_phase_split(op, pre, rhs, chunk, chunk_ms):
                          device=rhs.device)
     st = fresh_state(rhs)
     atol2 = ((1e-6 ** 2) * (rhs * rhs).sum()).reshape(1)
-    fp._launch(op, pre, rhs, st, atol2, 200, True, chunk, timing=timing)
+    fp._launch(op, pre, rhs, st, atol2, 200, True, chunk, schedule=schedule,
+               timing=timing)
     torch.cuda.synchronize()
     cycles = dict(zip(fp.B1_TIMERS, timing.tolist()))
     total = sum(cycles.values())
@@ -860,7 +1083,7 @@ def phase_timing(gn, gdev):
     out = {}
     iters = gn.optimize(gdev).iterations_run
     times = []
-    for _ in range(5):
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(20):
@@ -1437,8 +1660,9 @@ def phase_ba_kernels(device):
         out += compare_chunks(name, op, pre, rhs)
         times[name] = chunk_times(op, pre, rhs)
         bounds[name] = chunk_bound(op, pre, rhs, 16)
-        times[name]["resident"] = fp.b1_schedule(
-            device.index or 0, 6, np_, mw, 0).resident
+        plan = b1_plan_of(op, pre, rhs)
+        times[name]["resident"] = plan.resident
+        times[name]["schedule"] = plan.schedule
         log("ba_b1_phase_split " + json.dumps({name: b1_phase_split(
             op, pre, rhs, 16, statistics.mean(times[name]["kernel"]))}))
     graph = attach_plan(synthetic3d.make_ba_problem(512, 4096, 24,
@@ -1507,6 +1731,7 @@ def ba_optimize(case, device, **change):
     est = res.graph.poses.cpu().numpy()
     first_s = time.perf_counter() - t1
     launches = read_counts()
+    b1_schedules = read_b1_schedules()
     it = res.iterations_run
     errors = res.errors.cpu().numpy()[:it]
     ref = BA_REF[case]
@@ -1521,6 +1746,7 @@ def ba_optimize(case, device, **change):
             graph.poses[:poses].numpy(), gt),
         "ate_final": synthetic3d.pose_ate_rmse(est[:poses], gt),
         "kernel_launches": launches,
+        "b1_schedule_launches": b1_schedules,
         "finite": bool(np.isfinite(est).all() and np.isfinite(errors).all()),
         "reference": ref,
     }
@@ -1565,8 +1791,11 @@ def phase_ba_path(device):
     cli = json.loads(buf.getvalue().strip().splitlines()[-1])
     ref = BA_REF["ba3d_defaults"]
     cli["kernel_launches_by_kernel"] = launches
-    cli["resident_u_in_smem"] = fp.b1_schedule(
-        device.index or 0, 6, 64, 3 * cli["landmarks"], 0).resident
+    cli["b1_schedule_launches"] = read_b1_schedules()
+    plan = fp.b1_schedule(device.index or 0, 6, 64, 3 * cli["landmarks"],
+                          0, 6)
+    cli["resident_u_in_smem"] = plan.resident
+    cli["b1_schedule"] = plan.schedule
     checks = {
         "exit 0": code == 0,
         "device": cli["device"] == "cuda",
@@ -3400,9 +3629,8 @@ def b1_on_system(device, cfg, graph):
             "chunk_ms": chunk_times(op, pre, rhs, chunk),
             "bound": chunk_bound(op, pre, rhs, chunk),
             "u_bytes": op.u.numel() * 4,
-            "resident_u_in_smem": fp.b1_schedule(
-                device.index or 0, 3, rhs.shape[1], op.u.shape[-1],
-                0 if pre.cinv is None else pre.cinv.shape[-1]).resident}
+            "resident_u_in_smem": b1_plan_of(op, pre, rhs).resident,
+            "b1_plan": b1_plan_of(op, pre, rhs)._asdict()}
 
 
 def multi_loop_b1(device):
@@ -3642,7 +3870,7 @@ def main(argv=None) -> int:
         ("ba_scale_path", lambda: state.update(
             ba_scale=phase_ba_scale_path(device))),
         ("ba_scale_timing", lambda: state.update(ba_scale_timing={
-            case: path_timing(gn, gdev, "band", rounds=2)
+            case: path_timing(gn, gdev, "band", rounds=1)
             for case, (_, gn, gdev) in state["ba_scale"].items()})),
         ("plain_loop", lambda: state.update(
             plain=phase_plain_loop(device, state))),
@@ -3673,6 +3901,8 @@ def main(argv=None) -> int:
         ("bench", lambda: state.update(bench=phase_bench(device, smi))),
         ("scale_entry", lambda: state.update(
             scale_entry=phase_scale_entry(device, state))),
+        ("b1_layouts", lambda: state.update(
+            b1_layouts=phase_b1_layouts(device))),
     ]
     extra = {"incr100k_diag": lambda: phase_incr100k_diag(device)}
     if only is not None:
@@ -3881,6 +4111,37 @@ def main(argv=None) -> int:
             se["band100k"][f"band-100k-jacobi-cg128-cap{2 * c}"][
                 "kernel_launches"]["band_fused_pcg_chunk"]),
             max_abs_err=bk100["max_abs"]) for c in (10, 20)})
+    # B1 by schedule (phase 31): each schedule's launches on the paths
+    # whose layouts take it (the main path and the ba3d defaults: the
+    # one-cluster schedule; the 2000-pose shape check, the ba3d bench row and
+    # multi-loop-1k: the card-wide grid), and its times at the layouts it
+    # serves against its plain version, its bound and the cluster schedule
+    bl = state["b1_layouts"]
+    sched_paths = {
+        "main_path": state["main"]["b1_schedule_launches"],
+        "shape_2000": state["shape"]["b1_schedule_launches"],
+        "ba128": state["ba"]["ba128"]["b1_schedule_launches"],
+        "ba3d_defaults": state["ba"]["ba3d_defaults"]["b1_schedule_launches"],
+        "multi-loop-1k": bl["multi_loop_path"]["b1_schedule_launches"],
+    }
+    b1["schedules"] = {}
+    for sch in ("cluster", "split", "grid"):
+        by_path = {k: c[sch] for k, c in sched_paths.items() if c[sch]}
+        if not by_path:
+            continue
+        b1["schedules"][sch] = dict(
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            layouts={name: dict(
+                ms=statistics.mean(m["ms"][sch]),
+                plain_ms=statistics.mean(m["plain_ms"]),
+                bound_ms=m["bound"]["bound_ms"],
+                bound_by=m["bound"]["bound_by"],
+                max_abs_err=max(c["max_abs_err"]
+                                for c in m["schedules"][sch]["checks"]),
+                barrier_floor_ms=m["schedules"][sch]["barrier_floor_ms"],
+                cluster_schedule_ms=statistics.mean(m["ms"]["cluster"]),
+                library_ms=None)
+                for name, m in bl["layouts"].items() if m["chosen"] == sch})
     # B3 on its entry point's run; headline numbers at W=576, B=512 (the
     # window the JAX script's docstring gives for the 10k workload), every
     # shape under by_shape.  library_ms: no single PyTorch call computes

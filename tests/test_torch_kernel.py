@@ -120,6 +120,118 @@ def test_resident_shared_memory_formula():
     assert fp.chunk_smem_bytes(3, 2048, 768, 0) <= fp.SMEM_BUDGET_BYTES
 
 
+@pytest.mark.parametrize("dp,np_,mw,nc,nl,clusters,planes,local,want", [
+    # U columns of 112 blocks (7 a block, row stride 7), two whole vectors,
+    # four shares of 68 poses, the local levels' two buffers over 68 + 2 x
+    # 15 poses, the planes' share (2 L + 4 planes) and the four local
+    # levels' planes over 96, 92, 84 and 68 poses, 384 column sums, urow,
+    # 48 + 8 reduction slots
+    (3, 1088, 768, 0, 11, 7, True, 4,
+     4 * (3264 * 7 + 2 * 3264 + 4 * 204 + 2 * 3 * 98 + 26 * 3 * 204
+          + 2 * 9 * (96 + 92 + 84 + 68) + 384 + 7 + 56)),
+    # no local level: one buffer over the block's own poses; no planes
+    (3, 2048, 768, 0, 11, 7, False, 0,
+     4 * (6144 * 7 + 2 * 6144 + 4 * 384 + 384 + 384 + 7 + 56)),
+    # three clusters: 32 columns a block take a row stride of 33; a coarse
+    # level of 4 groups adds 4 dp nc floats
+    (6, 128, 1536, 4, 7, 3, True, 4,
+     4 * (768 * 33 + 2 * 768 + 4 * 48 + 2 * 6 * 38 + 18 * 6 * 48
+          + 2 * 36 * (36 + 32 + 24 + 8) + 4 * 6 * 4 + 384 + 32 + 56)),
+    # small layouts ask for the floor that keeps one block an SM
+    (6, 64, 768, 0, 6, 1, True, 4, 116 * 1024),
+    (3, 100, 768, 3, 7, 7, True, 5, 116 * 1024),
+])
+def test_split_shared_memory_formula(dp, np_, mw, nc, nl, clusters, planes,
+                                     local, want):
+    """The split schedules' shared memory per block (mirrors
+    ``split_layout`` in csrc/fused_pcg_chunk.cu), in bytes."""
+    assert fp.split_smem_bytes(dp, np_, mw, nc, nl, clusters,
+                               planes=planes, local=local) == want
+
+
+@pytest.mark.parametrize("dp,np_,mw,nl,want", [
+    # the main path and the ba3d defaults: the one-cluster schedule holds U
+    (3, 192, 768, 8, ("cluster", 16, 1, 48, 0, True, False, 0)),
+    (6, 64, 768, 6, ("cluster", 16, 1, 48, 0, True, False, 0)),
+    # the ba3d bench row, multi-loop-1k, the 2000-pose request: U over the
+    # card, the planes on chip where they fit beside it, the first PCR
+    # levels (4: shifts 1-8) on an extended range while it stays one
+    # element a thread and fits
+    (6, 128, 1536, 7, ("grid", 16, 7, 14, 8, True, True, 4)),
+    (3, 1088, 768, 11, ("grid", 16, 7, 7, 68, True, True, 4)),
+    (3, 2048, 768, 11, ("grid", 16, 7, 7, 128, True, False, 0)),
+    # past the grid's shared memory: the one-cluster schedule, U from L2
+    (3, 2600, 768, 12, ("cluster", 16, 1, 48, 0, False, False, 0)),
+])
+def test_b1_plan_at_the_suite_layouts(dp, np_, mw, nl, want):
+    """Which schedule, cluster size, cluster count, columns and poses a
+    block, U and planes residency and local PCR levels each path's layout
+    takes on an H100."""
+    plan = fp.b1_plan(dp, np_, mw, 0, nl, fp.SMEM_BUDGET_BYTES,
+                      fp.H100_CLUSTERS)
+    assert tuple(plan)[:8] == want
+    assert plan.smem_bytes <= fp.SMEM_BUDGET_BYTES
+    assert plan.grid == plan.clusters * plan.cluster
+    assert fp.b1_fits(dp, np_, mw, 0, nl)
+
+
+@pytest.mark.parametrize("case", ["few_clusters", "split_forced",
+                                  "cluster8", "coarse"])
+def test_b1_plan_forced_and_edge_layouts(case):
+    """A card that runs fewer clusters (wider column slices), the split
+    schedule forced on one cluster, clusters of 8, a coarse level."""
+    budget, h100 = fp.SMEM_BUDGET_BYTES, fp.H100_CLUSTERS
+    if case == "few_clusters":
+        plan = fp.b1_plan(3, 1088, 768, 0, 11, budget, {16: 5})
+        assert (plan.schedule, plan.clusters, plan.cols_per_block,
+                plan.planes) == ("grid", 5, 10, False)
+        # at three, a block's 16 columns no longer fit: the one-cluster schedule
+        assert fp.b1_plan(3, 1088, 768, 0, 11, budget,
+                          {16: 3}).schedule == "cluster"
+    elif case == "split_forced":
+        plan = fp.b1_plan(6, 64, 768, 0, 6, budget, h100, "split")
+        assert (plan.schedule, plan.clusters, plan.cols_per_block,
+                plan.poses_per_block) == ("split", 1, 48, 4)
+    elif case == "cluster8":
+        plan = fp.b1_plan(6, 128, 1536, 0, 7, budget, h100, "grid", 8)
+        assert (plan.cluster, plan.clusters, plan.cols_per_block,
+                plan.poses_per_block) == (8, 15, 13, 16)
+    else:
+        plan = fp.b1_plan(3, 1088, 768, 17, 11, budget, h100)
+        assert plan.smem_bytes == fp.split_smem_bytes(3, 1088, 768, 17, 11, 7,
+                                                      local=4)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("schedule", "is not one of"), ("grid_tall", "grid schedule"),
+    ("split_big", "split schedule"), ("nothing", "no schedule fits"),
+    ("no_cluster", "grid schedule"), ("cluster_tall", "no cluster of 16"),
+])
+def test_b1_plan_refuses(case, match):
+    """An unknown schedule, a forced grid or split schedule whose slices do
+    not fit (2600 poses; 1088 poses on one cluster), a layout that nothing
+    fits, a card that runs no cluster of 16, and the one-cluster schedule forced where
+    not even its vectors fit are refused; nothing gives way to another
+    schedule."""
+    budget, h100 = fp.SMEM_BUDGET_BYTES, fp.H100_CLUSTERS
+    args = {
+        "schedule": ((3, 192, 768, 0, 8, budget, h100), dict(schedule="x")),
+        "grid_tall": ((3, 2600, 768, 0, 12, budget, h100),
+                      dict(schedule="grid")),
+        "split_big": ((3, 1088, 768, 0, 11, budget, h100),
+                      dict(schedule="split")),
+        "nothing": ((3, 20_000, 8, 0, 15, budget, h100), {}),
+        "no_cluster": ((3, 1088, 768, 0, 11, budget, {}),
+                       dict(schedule="grid")),
+        "cluster_tall": ((3, 20_000, 8, 0, 15, budget, h100),
+                         dict(schedule="cluster")),
+    }[case]
+    with pytest.raises(ValueError, match=match):
+        fp.b1_plan(*args[0], **args[1])
+    if case == "nothing":
+        assert not fp.b1_fits(3, 20_000, 8, 0, 15)
+
+
 def test_band_shared_memory_formula():
     """A ring of `slots` parts of `pr` rows by `cols` columns with the rows'
     state values, the two cluster-visible partial t buffers and t over the
@@ -177,12 +289,24 @@ def test_kernel_layouts_at_the_three_configs(three_configs, poses, mode,
     if mode == "resident":
         mw = 2 * g.num_landmarks
         assert mw == 768
-        lay = fp.b1_layout(3, np_, mw, 0, fp.SMEM_BUDGET_BYTES)
-        assert (lay.cluster, lay.cols_per_block) == (16, 48)
-        assert lay.resident is resident
-        assert lay.smem_bytes == fp.chunk_smem_bytes(3, np_, mw, 0,
+        nl = (np_ - 1).bit_length()
+        # the one-cluster schedule: U in shared memory at 150 poses, not at 2000
+        one = fp.b1_plan(3, np_, mw, 0, nl, fp.SMEM_BUDGET_BYTES,
+                         fp.H100_CLUSTERS, "cluster")
+        assert (one.cluster, one.clusters, one.cols_per_block) == (16, 1, 48)
+        assert one.resident is resident
+        assert one.smem_bytes == fp.chunk_smem_bytes(3, np_, mw, 0,
                                                      resident=resident)
-        assert lay.smem_bytes <= fp.SMEM_BUDGET_BYTES
+        # the plan keeps it where U fits, else spreads U over the card
+        plan = fp.b1_plan(3, np_, mw, 0, nl, fp.SMEM_BUDGET_BYTES,
+                          fp.H100_CLUSTERS)
+        if resident:
+            assert plan == one
+        else:
+            assert plan == fp.B1Plan("grid", 16, 7, 7, 128, True, False, 0,
+                                     fp.split_smem_bytes(3, np_, mw, 0, nl,
+                                                         7, planes=False))
+        assert plan.smem_bytes <= fp.SMEM_BUDGET_BYTES
         return
     band = g.plan.band
     b_dl, mw = band.chunk_b * band.dl, band.n_wide * band.dl
@@ -715,7 +839,8 @@ def test_kernel_matches_plain_version_at_both_cluster_sizes(cuda, cluster):
     op, pre, rhs = _tiny_system(np_=192, mw=768, nc=3)
     op, pre, rhs = _to(op, cuda), _to(pre, cuda), rhs.to(cuda)
     st, atol2 = _start(rhs)
-    ker = fp._launch(op, pre, rhs, st, atol2, 200, True, 16, cluster=cluster)
+    ker = fp._launch(op, pre, rhs, st, atol2, 200, True, 16,
+                     schedule="cluster", cluster=cluster)
     ref = fp.fused_pcg_chunk_ref(op, pre, rhs, st, atol2, 200, True, 16)
     assert int(ker.it) == int(ref.it)
     assert float((ker.x - ref.x).abs().max() / ref.x.abs().max()) <= 1e-4
@@ -763,9 +888,123 @@ def test_dp6_resident_kernel_matches_plain_version(cuda, np_, mw, restart):
     defaults: U slice in shared memory) and Np=128, Mw=1536 (the bench
     row: 768 elements on 576 threads, U from L2)."""
     op, pre, rhs = _tiny_system(np_=np_, mw=mw, nc=2, dp=6)
-    lay = fp.b1_schedule(cuda.index or 0, 6, np_, mw, 2)
-    assert lay.resident == (np_ == 64)
+    plan = fp.b1_schedule(cuda.index or 0, 6, np_, mw, 2, 0)
+    assert plan.schedule == ("cluster" if np_ == 64 else "grid")
     _compare(_to(op, cuda), _to(pre, cuda), rhs.to(cuda), restart, chunk=8)
+
+
+def _pcr_system(np_, mw, nc=0, seed=0, dp=3):
+    """:func:`_tiny_system` preconditioned by PCR on its chain (the split
+    schedules distribute the PCR levels over a cluster)."""
+    op, pre, rhs = _tiny_system(np_, mw, nc, seed, dp)
+    al, ga, binv = schur.build_tridiag_planes(op.tdiag.double(),
+                                              op.tupper.double())
+    pre = pre._replace(alphas=al.float().contiguous(),
+                       gammas=ga.float().contiguous(),
+                       binv=binv.float().contiguous())
+    return op, pre, rhs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("restart", [True, False])
+@pytest.mark.parametrize("nc", [0, 4])
+@pytest.mark.parametrize("schedule", ["grid", "split"])
+@pytest.mark.parametrize("dp", [3, 6])
+def test_split_schedules_match_plain_version(cuda, dp, schedule, nc,
+                                             restart):
+    """The split schedules (csrc/fused_pcg_chunk.cu, fused_pcg_split_kernel)
+    against the plain version: 100 poses, which 16 blocks do not divide
+    (7 a block, the last rank none), and on the grid Mw=200 (dp=3) or 300
+    (dp=6) over 112 blocks, so the last blocks hold no column; PCR (L=7),
+    with and without a coarse level of 4 groups, a fresh and a carried
+    chunk; one counted launch each, and the same bits on a rerun."""
+    op, pre, rhs = _pcr_system(np_=100, mw=100 * (dp - 1), nc=nc, dp=dp)
+    op, pre, rhs = _to(op, cuda), _to(pre, cuda), rhs.to(cuda)
+    plan = fp.b1_schedule(cuda.index or 0, dp, 100, 100 * (dp - 1), nc, 7,
+                          schedule)
+    assert plan.schedule == schedule and plan.poses_per_block == 7
+    st, atol2 = _start(rhs)
+    if not restart:
+        st = fp.fused_pcg_chunk_ref(op, pre, rhs, st, atol2, 200, True, 8)
+    before = fp.fused_pcg_chunk.launches
+    ker = fp._launch(op, pre, rhs, st, atol2, 200, restart, 8,
+                     schedule=schedule)
+    again = fp._launch(op, pre, rhs, st, atol2, 200, restart, 8,
+                       schedule=schedule)
+    torch.cuda.synchronize()
+    assert fp.fused_pcg_chunk.launches == before + 2
+    ref = fp.fused_pcg_chunk_ref(op, pre, rhs, st, atol2, 200, restart, 8)
+    assert int(ker.it) == int(ref.it) and int(ker.stop) == int(ref.stop)
+    assert float((ker.x - ref.x).abs().max() / ref.x.abs().max()) <= 1e-4
+    assert float((ker.rt - ref.rt).abs().max()) <= \
+        1e-4 * float(rhs.abs().max())
+    for name in fp.ChunkState._fields:
+        assert torch.equal(getattr(ker, name), getattr(again, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["grid", "split"])
+def test_split_schedule_matvec(cuda, schedule):
+    """A launch of no iteration returns rhs - S x in its true residual: the
+    split matvec alone (U's columns over the blocks, the cluster and grid
+    sums, T at the elements), within 1e-5 of max|S x| of the plain
+    operator, at 100 poses and Mw=200."""
+    op, pre, rhs = _pcr_system(np_=100, mw=200)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=rhs.shape).astype(np.float32))
+    z = torch.zeros_like(x)
+    st = fp.ChunkState(x=x, r=z, p=z, rt=z,
+                       it=torch.zeros(1, dtype=torch.int32),
+                       rz=torch.zeros(1),
+                       stop=torch.zeros(1, dtype=torch.int32),
+                       rr=torch.zeros(1))
+    op, pre, rhs, st = _to(op, cuda), _to(pre, cuda), rhs.to(cuda), \
+        _to(st, cuda)
+    ker = fp._launch(op, pre, rhs, st, torch.zeros(1, device=cuda), 200,
+                     True, 0, schedule=schedule)
+    sx = fp.fused_matvec_ref(op, st.x)
+    assert float((ker.rt - (rhs - sx)).abs().max()) <= \
+        1e-5 * float(sx.abs().max())
+    assert torch.equal(ker.x, st.x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp,np_,mw", [(3, 1088, 768), (6, 128, 1536),
+                                       (3, 2048, 768)])
+def test_grid_schedule_at_the_path_layouts(cuda, dp, np_, mw):
+    """The layouts the plan sends card-wide (multi-loop-1k, the ba3d bench
+    row, the 2000-pose request: planes from L2) with PCR at their levels:
+    the plan picks the grid, the chunk agrees with the plain version, a
+    rerun gives the same bits, and no instantiation spills registers but
+    the cluster schedule at dp=3 (8 bytes)."""
+    op, pre, rhs = _pcr_system(np_=np_, mw=mw, dp=dp)
+    nl = pre.alphas.shape[0]
+    plan = fp.b1_schedule(cuda.index or 0, dp, np_, mw, 0, nl)
+    assert plan.schedule == "grid" and plan.planes == (np_ != 2048)
+    op, pre, rhs = _to(op, cuda), _to(pre, cuda), rhs.to(cuda)
+    _compare(op, pre, rhs, restart=True, chunk=8)
+    st, atol2 = _start(rhs)
+    a = fp.fused_pcg_chunk(op, pre, rhs, st, atol2, 200, True, 8)
+    b = fp.fused_pcg_chunk(op, pre, rhs, st, atol2, 200, True, 8)
+    for name in fp.ChunkState._fields:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    # the cluster schedule at dp=3 keeps 8 bytes of spilled registers (576
+    # threads, 96 registers each); every other instantiation none
+    for d in fp.KERNEL_DPS:
+        for split in (False, True):
+            want = 8 if (d, split) == (3, False) else 0
+            assert fp.b1_kernel_attrs(d, split)["local_bytes"] <= want, \
+                (d, split)
+
+
+@pytest.mark.cuda
+def test_forced_schedule_the_card_refuses_raises(cuda):
+    """A forced schedule that does not fit raises; nothing gives way."""
+    op, pre, rhs = _pcr_system(np_=1088, mw=768)
+    op, pre, rhs = _to(op, cuda), _to(pre, cuda), rhs.to(cuda)
+    st, atol2 = _start(rhs)
+    with pytest.raises(ValueError, match="split schedule"):
+        fp._launch(op, pre, rhs, st, atol2, 200, True, 4, schedule="split")
 
 
 @pytest.mark.cuda

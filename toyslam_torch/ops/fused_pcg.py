@@ -17,7 +17,7 @@ per chunk to the host.
 
 * resident (``csrc/fused_pcg_chunk.cu``, :func:`fused_pcg_chunk`): V as
   dense slabs ``u [dp, Np, Mw]`` split by columns over one thread-block
-  cluster (:func:`b1_layout`);
+  cluster, or over a cooperative grid of clusters (:func:`b1_plan`);
 * band (``csrc/band_fused_pcg_chunk.cu``, :func:`band_fused_pcg_chunk`):
   for large graphs, V as the tile stack of ``ops/band_plan.py`` streamed
   from device memory once per matvec by a cooperative grid, plus a few
@@ -453,48 +453,170 @@ def fused_precond_from_graph(cfg, graph, lam: torch.Tensor) -> FusedPrecond:
 # pose block sizes both kernels are instantiated for (their C entry points
 # dispatch on dp): SE(2) and SE(3)
 KERNEL_DPS = (3, 6)
-B1_THREADS = 576      # kThreads in csrc/fused_pcg_chunk.cu
-B1_CLUSTER = 16       # blocks per launch (a non-portable cluster size)
+# cluster_threads(dp) in csrc/fused_pcg_chunk.cu: a block of the "cluster"
+# schedule
+B1_THREADS = {3: 576, 6: 384}
+B1_SPLIT_THREADS = 384   # kSThreads: a block of the split schedules
+B1_CLUSTER = 16       # blocks a cluster (a non-portable cluster size)
+B1_MAX_CLUSTERS = 16  # kMaxClusters: clusters of a split grid
+# kOneBlockPerSm: a split block asks for at least this much shared memory,
+# so that no two share an SM
+B1_ONE_BLOCK_PER_SM = 116 * 1024
+# "cluster": the cluster schedule, one cluster, the state replicated in every
+# block; "split": the state split over the blocks of one cluster, the PCR
+# distributed; "grid": the split schedule on a cooperative grid of clusters,
+# U's columns spread over the whole card
+B1_SCHEDULES = ("cluster", "split", "grid")
 
 
 def chunk_smem_bytes(dp: int, np_: int, mw: int, nc: int,
                      cluster: int = B1_CLUSTER, resident: bool = False) -> int:
-    """Shared memory of one block of the resident kernel: when
+    """Shared memory of one block of the "cluster" schedule: when
     ``resident``, the block's U slice ``[dp*Np, ceil(Mw / cluster)]`` with
     rows padded to an odd number of float4s; the float4 column-sum
-    scratch; the block's V^T x columns; seven [dp, Np] vectors; the coarse
+    scratch (one a thread); the block's V^T x columns; seven [dp, Np] vectors; the coarse
     scratch and the reduction slots (mirrors ``smem_layout`` in
     csrc/fused_pcg_chunk.cu)."""
     cp = -(-mw // cluster)
     n = dp * np_
     stride = 4 * ((-(-cp // 4)) | 1)
-    return 4 * ((n * stride if resident else 0) + 4 * B1_THREADS
+    threads = B1_THREADS[dp]
+    return 4 * ((n * stride if resident else 0) + 4 * threads
                 + -(-cp // 4) * 4 + 7 * n + 2 * dp * nc
-                + 2 * (B1_THREADS // 32) + 2)
+                + 2 * (threads // 32) + 2)
 
 
-class ClusterLayout(NamedTuple):
-    """How one launch of the resident kernel splits U over its cluster."""
+def _local_lens(ppb: int, local: int) -> list[int]:
+    """The output range of each of the split schedule's ``local`` PCR
+    levels over the extended poses (``local_len`` in
+    csrc/fused_pcg_chunk.cu)."""
+    return [ppb + 2 * ((1 << local) - (2 << lv)) for lv in range(local)]
 
-    cluster: int          # thread blocks in the launch's cluster
-    cols_per_block: int   # U columns owned by each block
+
+def split_smem_bytes(dp: int, np_: int, mw: int, nc: int, nlevels: int,
+                     clusters: int, cluster: int = B1_CLUSTER,
+                     planes: bool = True, local: int = 0) -> int:
+    """Shared memory of one block of the split schedules: its U columns
+    ``ceil(Mw / (clusters * cluster))`` for every row (an odd row stride),
+    two whole [dp, Np] vectors, four [dp, ppb] shares (ppb = ceil(Np /
+    cluster)), the ``local`` PCR levels' two buffers over ppb + 2 (2^local
+    - 1) poses (one when ``local`` is 0), when ``planes`` the share of the PCR, binv and T planes and
+    the local levels' planes over their ranges, the coarse scratch, the
+    column sums, urow and the reduction slots; at least
+    ``B1_ONE_BLOCK_PER_SM`` (mirrors ``split_layout`` in
+    csrc/fused_pcg_chunk.cu)."""
+    cp = -(-mw // (clusters * cluster))
+    ppb = -(-np_ // cluster)
+    n, e = dp * np_, dp * ppb
+    ext = dp * (ppb + 2 * ((1 << local) - 1))
+    floats = (n * (cp | 1) + 2 * n + 4 * e + (2 if local else 1) * ext
+              + (((2 * nlevels + 4) * dp * e
+                  + 2 * dp * dp * sum(_local_lens(ppb, local)))
+                 if planes else 0)
+              + 4 * dp * nc + B1_SPLIT_THREADS + cp
+              + 4 * (B1_SPLIT_THREADS // 32) + 8)
+    return max(4 * floats, B1_ONE_BLOCK_PER_SM)
+
+
+class B1Plan(NamedTuple):
+    """How one launch of the resident kernel lays out its work."""
+
+    schedule: str         # one of B1_SCHEDULES
+    cluster: int          # thread blocks a cluster
+    clusters: int         # clusters in the launch (1 but on "grid")
+    cols_per_block: int   # U columns held by each block
+    poses_per_block: int  # split schedules: each block's share of the poses
     resident: bool        # the U slice lives in shared memory for the launch
+    planes: bool          # split schedules: the planes' share in shared memory
+    local_levels: int     # split schedules: PCR levels with no cluster barrier
     smem_bytes: int       # dynamic shared memory per block
 
+    @property
+    def grid(self) -> int:
+        return self.clusters * self.cluster
 
-def b1_layout(dp: int, np_: int, mw: int, nc: int, smem_limit: int,
-              cluster: int = B1_CLUSTER) -> ClusterLayout:
-    """The resident kernel's layout under a shared-memory limit per block:
-    the U slice in shared memory where it fits beside the vectors, else
-    streamed from L2 on every matvec.  Raises when the vectors alone do not
-    fit."""
+    @property
+    def split(self) -> bool:
+        return self.schedule != "cluster"
+
+
+def _cluster_plan(dp, np_, mw, nc, smem_limit, cluster):
     for resident in (True, False):
         need = chunk_smem_bytes(dp, np_, mw, nc, cluster, resident)
         if need <= smem_limit:
-            return ClusterLayout(cluster, -(-mw // cluster), resident, need)
-    raise ValueError(
-        f"fused_pcg_chunk: Np={np_}, Mw={mw} needs {need} B of shared "
-        f"memory per block; {smem_limit} B allowed")
+            return B1Plan("cluster", cluster, 1, -(-mw // cluster), 0,
+                          resident, False, 0, need)
+    return None
+
+
+def _split_plan(schedule, dp, np_, mw, nc, nlevels, smem_limit, cluster,
+                clusters):
+    ppb = -(-np_ // cluster)
+    cp = -(-mw // (clusters * cluster))
+    if dp * ppb > B1_SPLIT_THREADS or cp > B1_SPLIT_THREADS:
+        return None
+    # the local levels: as many as keep the extended range one element a
+    # thread
+    top = 0
+    while (top < nlevels
+           and dp * (ppb + 2 * ((2 << top) - 1)) <= B1_SPLIT_THREADS):
+        top += 1
+    for planes in (True, False):
+        for local in range(top, -1, -1):
+            need = split_smem_bytes(dp, np_, mw, nc, nlevels, clusters,
+                                    cluster, planes, local)
+            if need <= smem_limit:
+                return B1Plan(schedule, cluster, clusters, cp, ppb, True,
+                              planes, local, need)
+    return None
+
+
+def b1_plan(dp: int, np_: int, mw: int, nc: int, nlevels: int,
+            smem_limit: int, clusters: dict[int, int],
+            schedule: str | None = None,
+            cluster: int | None = None) -> B1Plan:
+    """The resident kernel's schedule for a layout under a shared-memory
+    limit per block, given how many clusters of each size the card runs at
+    once (``schedule`` and ``cluster`` force a schedule and a size).
+
+    the "cluster" schedule where one cluster of 16 holds U in shared
+    memory beside its replicated state, one element a thread (the main
+    path, Np=192; the ba3d defaults, Np=64 at dp=6): there it measured
+    faster than the split state (chip_smoke.py, line ``b1_layout``).  Else
+    "grid": U's columns spread over every block of a cooperative grid of
+    clusters of 16 (7 on an H100), each block's share held in shared
+    memory for the launch, the state split over a cluster's blocks
+    (multi-loop-1k's Np=1088, the ba3d bench row's Np=128 at dp=6, the
+    2000-pose request's Np=2048, whose planes then stream from L2).  Else
+    the "cluster" schedule with U streamed from L2.  "split" (the grid's
+    kernel on one cluster) is taken only when forced.  A layout that none
+    of these fits raises; so does a forced one that does not fit."""
+    if schedule is not None and schedule not in B1_SCHEDULES:
+        raise ValueError(f"fused_pcg_chunk: schedule {schedule!r} is not one "
+                         f"of {B1_SCHEDULES}")
+    c = B1_CLUSTER if cluster is None else cluster
+    where = (f"Np={np_}, Mw={mw}, dp={dp} in {smem_limit} B of shared "
+             f"memory per block")
+    lay = (_cluster_plan(dp, np_, mw, nc, smem_limit, c)
+           if schedule in (None, "cluster") else None)
+    if schedule == "cluster" or (lay is not None and lay.resident
+                                 and dp * np_ <= B1_THREADS[dp]):
+        if lay is None:
+            raise ValueError(f"fused_pcg_chunk: no cluster of {c} fits "
+                             f"{where}")
+        return lay
+    ncl = 1 if schedule == "split" else min(clusters.get(c, 0),
+                                            B1_MAX_CLUSTERS)
+    sp = None if ncl < 1 else _split_plan(schedule or "grid", dp, np_, mw,
+                                          nc, nlevels, smem_limit, c, ncl)
+    if sp is not None:
+        return sp
+    if schedule is not None:
+        raise ValueError(f"fused_pcg_chunk: the {schedule} schedule with "
+                         f"clusters of {c} does not fit {where}")
+    if lay is not None:
+        return lay
+    raise ValueError(f"fused_pcg_chunk: no schedule fits {where}")
 
 
 BAND_THREADS = 256   # kThreads in csrc/band_fused_pcg_chunk.cu
@@ -737,16 +859,26 @@ def fused_mode(cfg, graph, group=None) -> str | None:
         return None
     nc = -(-n // cfg.pcg_coarse_group) if coarse_kind == "coarse" else 0
     mw = dl * m + dp * c
-    if (chunk_smem_bytes(dp, n, mw, nc) <= SMEM_BUDGET_BYTES
-            and 4 * dp * n * mw <= SLAB_BUDGET_BYTES):
+    nlevels = max(1, (n - 1).bit_length()) if local_kind == "tridiag" else 0
+    if 4 * dp * n * mw <= SLAB_BUDGET_BYTES and b1_fits(dp, n, mw, nc,
+                                                          nlevels):
         return "resident"
     band = graph.plan.band
     if band is None or (band.dp, band.dl) != (dp, dl):
         return None
-    nlevels = max(1, (n - 1).bit_length()) if local_kind == "tridiag" else 0
     if band_fits(dp, n, band, band.n_wide * dl + dp * c, nlevels, nc):
         return "band"
     return None
+
+
+def b1_fits(dp: int, np_: int, mw: int, nc: int, nlevels: int) -> bool:
+    """Whether the resident kernel's plan (:func:`b1_plan`) has a schedule
+    for a layout on an H100."""
+    try:
+        b1_plan(dp, np_, mw, nc, nlevels, SMEM_BUDGET_BYTES, H100_CLUSTERS)
+    except ValueError:
+        return False
+    return True
 
 
 def band_fits(dp: int, np_: int, band, mw: int, nlevels: int,
@@ -878,48 +1010,109 @@ def _library() -> ctypes.CDLL:
     from toyslam_torch import kernels
 
     lib = kernels.load("fused_pcg_chunk").lib
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fused_pcg_chunk_launch.argtypes = [ci] * 10 + [vp] * 28
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    pi = ctypes.POINTER(ci)
+    lib.fused_pcg_chunk_launch.argtypes = [pi, ci, ctypes.POINTER(vp), ci,
+                                           vp]
     lib.fused_pcg_chunk_launch.restype = ci
-    lib.fused_pcg_chunk_smem_bytes.argtypes = [ci] * 6
-    lib.fused_pcg_chunk_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_pcg_chunk_smem_bytes.argtypes = [pi, ci]
+    lib.fused_pcg_chunk_smem_bytes.restype = cll
     lib.fused_pcg_chunk_smem_optin.argtypes = [ci]
-    lib.fused_pcg_chunk_smem_optin.restype = ctypes.c_longlong
-    lib.fused_pcg_chunk_max_clusters.argtypes = [ci] * 6 + [
-        ctypes.POINTER(ci)]
+    lib.fused_pcg_chunk_smem_optin.restype = cll
+    lib.fused_pcg_chunk_max_clusters.argtypes = [pi, ci, ci, pi]
     lib.fused_pcg_chunk_max_clusters.restype = ci
+    lib.fused_pcg_chunk_attrs.argtypes = [ci, ci, ctypes.POINTER(cll)]
+    lib.fused_pcg_chunk_attrs.restype = ci
+    lib.fused_pcg_barrier_probe.argtypes = [ci, ci, ci, ctypes.c_longlong,
+                                            ci, ci, vp]
+    lib.fused_pcg_barrier_probe.restype = ci
     return lib
+
+
+B1_BARRIERS = ("cluster", "grid", "block")
+
+
+def b1_barrier_probe(device: torch.device, iters: int, kind: str,
+                     clusters: int, cluster: int, threads: int,
+                     smem_bytes: int) -> None:
+    """Launch ``iters`` barriers of ``kind`` (``B1_BARRIERS``) alone on a
+    cooperative grid of ``clusters`` clusters of ``cluster`` blocks of
+    ``threads`` threads at ``smem_bytes`` each, to time one barrier."""
+    err = _library().fused_pcg_barrier_probe(
+        clusters, cluster, threads, smem_bytes, iters,
+        B1_BARRIERS.index(kind), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_pcg_barrier_probe failed: cudaError_t {err}")
+
+
+def _b1_dims(plan: B1Plan, dp: int, np_: int, mw: int, nlevels: int,
+             nc: int, chunk_iters: int = 0, maxit: int = 0,
+             restart: bool = False):
+    """The launch's dims (``kDimDp`` ... ``kDimLocal`` in
+    csrc/fused_pcg_chunk.cu) as a C int array."""
+    vals = (dp, np_, mw, nlevels, nc, chunk_iters, int(maxit),
+            int(bool(restart)), int(plan.split), plan.cluster, plan.clusters,
+            int(plan.resident), int(plan.planes), plan.local_levels)
+    return (ctypes.c_int * len(vals))(*vals)
 
 
 @functools.cache
 def b1_schedule(device_index: int, dp: int, np_: int, mw: int, nc: int,
-                cluster: int = B1_CLUSTER) -> ClusterLayout:
-    """The resident kernel's cluster layout on the device, checked against
-    the card once per (device, shape, cluster size) and cached.  Raises
-    when the card cannot hold the cluster: there is no smaller one."""
+                nlevels: int, schedule: str | None = None,
+                cluster: int | None = None) -> B1Plan:
+    """The resident kernel's plan on the device for a layout
+    (:func:`b1_plan` under the card's shared memory, with the clusters of
+    the chosen size the card runs at once; ``schedule`` and ``cluster``
+    force them), queried once per (device, layout) and cached.  Raises when
+    the card cannot run it: nothing falls back to another schedule."""
     lib = _library()
     have = lib.fused_pcg_chunk_smem_optin(device_index)
     if have < 0:
         raise RuntimeError("cudaDeviceGetAttribute failed")
     name = torch.cuda.get_device_name(device_index)
+
+    def count(plan):
+        n = ctypes.c_int(0)
+        dims = _b1_dims(plan, dp, np_, mw, nlevels, nc)
+        if lib.fused_pcg_chunk_smem_bytes(dims, len(dims)) != plan.smem_bytes:
+            raise RuntimeError("fused_pcg_chunk: the host's shared-memory "
+                               "formula does not mirror the kernel's layout")
+        err = lib.fused_pcg_chunk_max_clusters(dims, len(dims), device_index,
+                                               ctypes.byref(n))
+        if err != 0:
+            raise RuntimeError(f"fused_pcg_chunk: occupancy query failed: "
+                               f"cudaError_t {err}")
+        return n.value
+
     try:
-        lay = b1_layout(dp, np_, mw, nc, have, cluster)
+        # the schedule and size first (as many clusters as an H100 runs),
+        # then the grid for the card's own count at that size
+        plan = b1_plan(dp, np_, mw, nc, nlevels, have, H100_CLUSTERS,
+                       schedule, cluster)
+        if plan.schedule == "grid":
+            fit = count(plan)
+            plan = b1_plan(dp, np_, mw, nc, nlevels, have,
+                           {plan.cluster: fit}, "grid", plan.cluster)
     except ValueError as e:
         raise ValueError(f"{e} on {name} (shared memory)") from None
-    if lib.fused_pcg_chunk_smem_bytes(dp, np_, mw, nc, cluster,
-                                      int(lay.resident)) != lay.smem_bytes:
-        raise RuntimeError("fused_pcg_chunk: chunk_smem_bytes does not "
-                           "mirror the kernel's shared-memory layout")
-    count = ctypes.c_int(0)
-    err = lib.fused_pcg_chunk_max_clusters(dp, np_, mw, nc, cluster,
-                                           int(lay.resident),
-                                           ctypes.byref(count))
-    if err != 0 or count.value < 1:
+    fit = count(plan)
+    if fit < plan.clusters:
         raise RuntimeError(
-            f"fused_pcg_chunk: {name} refuses a cluster of {cluster} blocks "
-            f"at {lay.smem_bytes} B of shared memory each (cudaError_t "
-            f"{err}, {count.value} clusters fit)")
-    return lay
+            f"fused_pcg_chunk: {name} runs {fit} clusters of {plan.cluster} "
+            f"blocks at {plan.smem_bytes} B of shared memory each; the "
+            f"{plan.schedule} schedule needs {plan.clusters}")
+    return plan
+
+
+def b1_kernel_attrs(dp: int, split: bool) -> dict:
+    """The resident kernel's instantiation for a pose block size and
+    schedule kind as the card compiled it: its registers a thread and its
+    local memory a thread (spilled registers)."""
+    out = (ctypes.c_longlong * 2)()
+    err = _library().fused_pcg_chunk_attrs(dp, int(split), out)
+    if err != 0:
+        raise RuntimeError(f"fused_pcg_chunk_attrs failed: cudaError_t {err}")
+    return {"registers": out[0], "local_bytes": out[1]}
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device):
@@ -933,15 +1126,21 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device):
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
-B1_TIMERS = ("vt_x", "v_urow", "exchange", "precond", "other")
+# block 0's clock64 sums per phase kind: V^T v over its columns, its
+# partial V urow, the cluster exchange (the "cluster" schedule: with its
+# two cluster barriers), the grid barrier, the preconditioner's gather and
+# local levels (split schedules), the rest of the preconditioner, the dot
+# products' sums, the cluster barriers (split schedules), the rest
+B1_TIMERS = ("vt_x", "v_urow", "exchange", "grid", "pcr_local", "precond",
+             "dots", "barrier", "other")
 
 
 def _launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters,
-            cluster=None, timing=None):
-    """Check, allocate and launch one chunk on a cluster of ``cluster``
-    blocks (default ``B1_CLUSTER``).  ``timing``, an int64 tensor of
-    len(B1_TIMERS) on the device, receives block 0's clock64 cycles per
-    phase kind."""
+            schedule=None, cluster=None, timing=None):
+    """Check, allocate and launch one chunk on the layout's plan
+    (:func:`b1_schedule`; ``schedule`` and ``cluster`` force one).
+    ``timing``, an int64 tensor of len(B1_TIMERS) on the device, zeroed by
+    the caller, receives block 0's clock64 cycles per phase kind."""
     dev = rhs.device
     dp, n = rhs.shape
     mw = op.u.shape[-1]
@@ -978,8 +1177,9 @@ def _launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters,
         _check(name, t, shape, dtype, dev)
 
     lib = _library()
-    lay = b1_schedule(dev.index or 0, dp, n, mw, nc,
-                      B1_CLUSTER if cluster is None else cluster)
+    plan = b1_schedule(dev.index or 0, dp, n, mw, nc, nl, schedule, cluster)
+    gpart = (torch.empty(2 * plan.clusters * dp * n, dtype=_f32, device=dev)
+             if plan.clusters > 1 else None)
     out = ChunkState(
         x=torch.empty(vec, dtype=_f32, device=dev),
         r=torch.empty(vec, dtype=_f32, device=dev),
@@ -995,21 +1195,22 @@ def _launch(op, pre, rhs, st, atol2, maxit, restart, chunk_iters,
         return None if t is None or t.numel() == 0 else t.data_ptr()
 
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [ptr(atol2), ptr(st.it), ptr(st.rz), ptr(st.stop),
+            ptr(rhs), ptr(st.x), ptr(st.r), ptr(st.p), ptr(st.rt),
+            ptr(op.u), ptr(op.tdiag), ptr(op.tupper), ptr(op.tlower),
+            ptr(pre.alphas), ptr(pre.gammas), ptr(pre.binv),
+            ptr(pre.cinv), ptr(pre.rmat),
+            ptr(out.x), ptr(out.r), ptr(out.p), ptr(out.rt),
+            ptr(out.it), ptr(out.rz), ptr(out.stop), ptr(out.rr),
+            ptr(gpart), ptr(timing)]
+    dims = _b1_dims(plan, dp, n, mw, nl, nc, chunk_iters, maxit, restart)
     err = lib.fused_pcg_chunk_launch(
-        dp, n, mw, nl, nc, chunk_iters, int(maxit), int(bool(restart)),
-        lay.cluster, int(lay.resident),
-        ptr(atol2), ptr(st.it), ptr(st.rz), ptr(st.stop),
-        ptr(rhs), ptr(st.x), ptr(st.r), ptr(st.p), ptr(st.rt),
-        ptr(op.u), ptr(op.tdiag), ptr(op.tupper), ptr(op.tlower),
-        ptr(pre.alphas), ptr(pre.gammas), ptr(pre.binv),
-        ptr(pre.cinv), ptr(pre.rmat),
-        ptr(out.x), ptr(out.r), ptr(out.p), ptr(out.rt),
-        ptr(out.it), ptr(out.rz), ptr(out.stop), ptr(out.rr),
-        ptr(timing), stream,
-    )
+        dims, len(dims), (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
+        stream)
     if err != 0:
         raise RuntimeError(f"fused_pcg_chunk launch failed: cudaError_t {err}")
     fused_pcg_chunk.launches += 1
+    fused_pcg_chunk.schedule_launches[plan.schedule] += 1
     return out
 
 
@@ -1025,8 +1226,10 @@ def fused_pcg_chunk(
 ) -> ChunkState:
     """One chunk of PCG: ``chunk_iters`` iterations from ``st``, then the
     true residual.  On CUDA tensors this launches the hand-written kernel
-    (csrc/fused_pcg_chunk.cu) and counts it in ``fused_pcg_chunk.launches``;
-    on CPU tensors it runs :func:`fused_pcg_chunk_ref`."""
+    (csrc/fused_pcg_chunk.cu) on the layout's plan and counts it in
+    ``fused_pcg_chunk.launches`` and, by schedule, in
+    ``fused_pcg_chunk.schedule_launches``; on CPU tensors it runs
+    :func:`fused_pcg_chunk_ref`."""
     if rhs.device.type == "cpu":
         return fused_pcg_chunk_ref(op, pre, rhs, st, atol2, maxit, restart,
                                    chunk_iters)
@@ -1036,6 +1239,7 @@ def fused_pcg_chunk(
 
 
 fused_pcg_chunk.launches = 0
+fused_pcg_chunk.schedule_launches = dict.fromkeys(B1_SCHEDULES, 0)
 
 
 # --- the band chunk: plain version ----------------------------------------
