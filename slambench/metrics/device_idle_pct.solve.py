@@ -1,0 +1,9 @@
+"""The share of the traced window in which no operation ran on the device
+(100 minus the union of its activities' intervals)."""
+
+
+def read(readings):
+    tr = readings.trace
+    if tr is None or tr.window_s <= 0 or tr.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
