@@ -1109,13 +1109,13 @@ def phase_timing(gn, gdev):
     out["phase_split"] = b1_phase_split(
         state["op"], state["pre"], state["rhs2"], chunk,
         statistics.mean(out["chunk_ms"]["kernel"]))
-    out["device"] = device_time(gn, gdev, out["optimize_s_median"])
+    out["device"] = device_time(gn, gdev)
     return out
 
 
-def device_time(gn, gdev, optimize_s, reps=5):
+def device_time(gn, gdev, reps=5):
     """Kernel time on the card per optimize() from torch.profiler, by
-    kernel name, and its share of the untraced optimize() wall time."""
+    kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1126,13 +1126,15 @@ def device_time(gn, gdev, optimize_s, reps=5):
         torch.cuda.synchronize()
     per_kernel = {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # the program's spans are mirrored on the device's timeline as
+        # user annotations; they are not kernels
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):
             per_kernel[e.key] = e.self_device_time_total / reps / 1e3  # ms
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {
         "kernel_ms_per_optimize": busy_ms,
-        "busy_share": busy_ms / (optimize_s * 1e3),
         "kernels_launched": len(per_kernel),
         "top_ms": dict(top),
     }
@@ -1629,7 +1631,7 @@ def phase_scale_timing(gn, gdev):
     full_precond()
     out["layer_ms"] = {name: cuda_ms(fn, 3) for name, fn in layers}
     out["pcg_iters_iter0"] = int(state["res"].iterations)
-    out["device"] = device_time(gn, gdev, out["optimize_s_median"], reps=1)
+    out["device"] = device_time(gn, gdev, reps=1)
     return out
 
 
@@ -1836,7 +1838,7 @@ def path_timing(gn, gdev, mode, rounds=3):
     state, layers = layer_system(gn, gdev, mode)
     out["layer_ms"] = {name: cuda_ms(fn, 3) for name, fn in layers}
     out["pcg_iters_iter0"] = int(state["res"].iterations)
-    out["device"] = device_time(gn, gdev, out["optimize_s_median"], reps=1)
+    out["device"] = device_time(gn, gdev, reps=1)
     return out
 
 

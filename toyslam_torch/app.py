@@ -13,7 +13,7 @@ local optimizer when it cannot connect (``backend`` says which ran);
 ``--snapshot PATH`` saves the optimized graph; ``--live [--optimize-every
 K]`` is the per-frame incremental loop; ``--view`` / ``--save-plot PATH``
 render the result; ``--profile DIR`` writes a ``torch.profiler`` trace of
-the optimize.
+the optimize, with the solve's phase spans (``toyslam_torch/tracing.py``).
 
 ``python -m toyslam_torch serve [--port 8888 --iterations 10 --backend
 torch|native --device cuda]`` stands up a graph-optimization server that

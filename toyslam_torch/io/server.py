@@ -33,6 +33,7 @@ from typing import Callable, Optional
 
 import torch
 
+from toyslam_torch import tracing
 from toyslam_torch.config import OptimizerConfig
 from toyslam_torch.io import codec
 from toyslam_torch.models.graph import FactorGraph2D
@@ -82,9 +83,11 @@ def torch_optimize_fn(
     def optimize(graph: FactorGraph2D) -> FactorGraph2D:
         with lock:
             t0 = time.perf_counter()
-            on_device = graph.to(device)
+            with tracing.span("toyslam.io.server.to_device"):
+                on_device = graph.to(device)
             t1 = time.perf_counter()
-            prepared = gn._prepare(on_device)
+            with tracing.span("toyslam.io.server.layout"):
+                prepared = gn._prepare(on_device)
             t2 = time.perf_counter()
             result = gn.optimize(prepared)
             poses = result.graph.poses.cpu()       # waits for the device

@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from toyslam_torch import tracing
 from toyslam_torch.config import OptimizerConfig
 from toyslam_torch.models.graph import FactorGraph2D, TensorTree
 from toyslam_torch.ops import band_plan
@@ -397,33 +398,39 @@ def _precond_apply(cfg, pre):
 
 def _solve_once(cfg, graph: FactorGraph2D, gp: GridPlan, lam, pre=None):
     n, m = graph.num_poses, graph.num_landmarks
-    sys_g = _assemble(graph, gp, cfg)
-    d = _damp(sys_g, lam)
-    hll_inv = schur.inv_blocks(d.hll)
-    matvec, s_diag_fn = _matvec_factory(d, hll_inv, gp, n, m)
+    with tracing.span("toyslam.ops.assemble"):
+        sys_g = _assemble(graph, gp, cfg)
+    with tracing.span("toyslam.ops.eliminate"):
+        d = _damp(sys_g, lam)
+        hll_inv = schur.inv_blocks(d.hll)
+        matvec, s_diag_fn = _matvec_factory(d, hll_inv, gp, n, m)
 
-    pose_L = gp.L_pose.reshape(m, d.kl)
-    lm_P = gp.P_lm.reshape(n, d.kp)
-    v0 = bm.mv(hll_inv, d.bl)
-    rhs = -d.bp + bm.mv(d.hpl_P, v0[lm_P]).sum(1)
+        pose_L = gp.L_pose.reshape(m, d.kl)
+        lm_P = gp.P_lm.reshape(n, d.kp)
+        v0 = bm.mv(hll_inv, d.bl)
+        rhs = -d.bp + bm.mv(d.hpl_P, v0[lm_P]).sum(1)
 
     if pre is None:
-        pre = _build_precond(cfg, d, hll_inv, s_diag_fn(), graph, gp)
-    if _band_mode(cfg, gp, n):
-        upper = d.tupper * gp.C_mask[:, None, None]
-        bop = fused_pcg.build_band_operator_grid(
-            d.hll, d.hpl_P, lm_P, d.hpp_diag, upper, gp.band, n)
-        res = fused_pcg.band_fused_pcg(
-            bop, pre, rhs.T.contiguous(), cfg.pcg_tol, cfg.pcg_max_iters,
-            cfg.pcg_fused_chunk, cfg.pcg_restart_every)
-        dx_p = res.x.T
-    else:
-        res = schur.pcg(matvec, _precond_apply(cfg, pre), rhs, cfg.pcg_tol,
-                        cfg.pcg_max_iters, cfg.pcg_restart_every,
-                        cfg.pcg_unroll)
-        dx_p = res.x
-    u = bm.mtv(d.hpl_L, dx_p[pose_L]).sum(1)
-    dx_l = bm.mv(hll_inv, -d.bl - u)
+        with tracing.span("toyslam.ops.precond"):
+            pre = _build_precond(cfg, d, hll_inv, s_diag_fn(), graph, gp)
+    with tracing.span("toyslam.ops.pcg"):
+        if _band_mode(cfg, gp, n):
+            upper = d.tupper * gp.C_mask[:, None, None]
+            bop = fused_pcg.build_band_operator_grid(
+                d.hll, d.hpl_P, lm_P, d.hpp_diag, upper, gp.band, n)
+            res = fused_pcg.band_fused_pcg(
+                bop, pre, rhs.T.contiguous(), cfg.pcg_tol,
+                cfg.pcg_max_iters, cfg.pcg_fused_chunk,
+                cfg.pcg_restart_every)
+            dx_p = res.x.T
+        else:
+            res = schur.pcg(matvec, _precond_apply(cfg, pre), rhs,
+                            cfg.pcg_tol, cfg.pcg_max_iters,
+                            cfg.pcg_restart_every, cfg.pcg_unroll)
+            dx_p = res.x
+    with tracing.span("toyslam.ops.backsub"):
+        u = bm.mtv(d.hpl_L, dx_p[pose_L]).sum(1)
+        dx_l = bm.mv(hll_inv, -d.bl - u)
     stats = schur.SolveStats(pcg_iters=res.iterations,
                              pcg_residual=res.residual_norm)
     return dx_p, dx_l, sys_g.err, stats
@@ -457,11 +464,14 @@ def grid_linearize_solve(cfg: OptimizerConfig):
 
     def _build(graph, lam):
         gp = graph.plan
-        d = _damp(_assemble(graph, gp, cfg), lam)
-        hll_inv = schur.inv_blocks(d.hll)
-        _, s_diag_fn = _matvec_factory(d, hll_inv, gp, graph.num_poses,
-                                       graph.num_landmarks)
-        return _build_precond(cfg, d, hll_inv, s_diag_fn(), graph, gp)
+        with tracing.span("toyslam.ops.precond"):
+            with tracing.span("toyslam.ops.assemble"):
+                sys_g = _assemble(graph, gp, cfg)
+            d = _damp(sys_g, lam)
+            hll_inv = schur.inv_blocks(d.hll)
+            _, s_diag_fn = _matvec_factory(d, hll_inv, gp, graph.num_poses,
+                                           graph.num_landmarks)
+            return _build_precond(cfg, d, hll_inv, s_diag_fn(), graph, gp)
 
     def init_state(graph):
         lam0 = torch.tensor(cfg.lambda_init, dtype=graph.poses.dtype,

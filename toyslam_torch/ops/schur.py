@@ -36,6 +36,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from toyslam_torch import tracing
 from toyslam_torch.config import OptimizerConfig
 from toyslam_torch.models.graph import FactorGraph2D
 from toyslam_torch.ops import blockmath as bm
@@ -858,19 +859,23 @@ def schur_solve(
     PCG state is replicated on every rank and only the edge partials cross
     the ranks.  Returns ``(dx_poses [N, dp], dx_landmarks [M, dl],
     stats)``."""
-    plan = _plan(graph)
-    d = damp(sys, lam)
-    hll_inv = inv_blocks(d.hll)
-    rhs = -d.bp + hpl_matvec(d, graph.lm_edges.lm, bm.mv(hll_inv, d.bl), plan,
-                             group)
-    matvec, s_diag_fn = _matvec_and_sdiag(d, hll_inv, graph, group)
+    with tracing.span("toyslam.ops.eliminate"):
+        plan = _plan(graph)
+        d = damp(sys, lam)
+        hll_inv = inv_blocks(d.hll)
+        rhs = -d.bp + hpl_matvec(d, graph.lm_edges.lm, bm.mv(hll_inv, d.bl),
+                                 plan, group)
+        matvec, s_diag_fn = _matvec_and_sdiag(d, hll_inv, graph, group)
     if pstate is None:
-        pstate = build_precond(d, hll_inv, graph, s_diag_fn(), precond,
-                               coarse_group, chunk, group)
-    res = pcg(matvec, precond_apply_fn(pstate, precond, coarse_group), rhs,
-              tol, max_iters, restart_every, unroll, group=group)
-    u = hlp_matvec(d, graph.lm_edges.pose, res.x, plan, group)
-    dx_l = bm.mv(hll_inv, -d.bl - u)
+        with tracing.span("toyslam.ops.precond"):
+            pstate = build_precond(d, hll_inv, graph, s_diag_fn(), precond,
+                                   coarse_group, chunk, group)
+    with tracing.span("toyslam.ops.pcg"):
+        res = pcg(matvec, precond_apply_fn(pstate, precond, coarse_group),
+                  rhs, tol, max_iters, restart_every, unroll, group=group)
+    with tracing.span("toyslam.ops.backsub"):
+        u = hlp_matvec(d, graph.lm_edges.pose, res.x, plan, group)
+        dx_l = bm.mv(hll_inv, -d.bl - u)
     return res.x, dx_l, SolveStats(pcg_iters=res.iterations,
                                    pcg_residual=res.residual_norm)
 
@@ -897,11 +902,12 @@ def schur_linearize_solve(cfg: OptimizerConfig, group=None):
     from toyslam_torch.ops import fused_pcg as fp
 
     def _assemble(graph: FactorGraph2D) -> BlockSystem:
-        return assemble_blocks(
-            graph, huber_delta=cfg.huber_delta,
-            fixed_prior=cfg.fixed_prior,
-            exact_odom_jacobians=cfg.exact_odom_jacobians, group=group,
-        )
+        with tracing.span("toyslam.ops.assemble"):
+            return assemble_blocks(
+                graph, huber_delta=cfg.huber_delta,
+                fixed_prior=cfg.fixed_prior,
+                exact_odom_jacobians=cfg.exact_odom_jacobians, group=group,
+            )
 
     def _solve(graph, lam, pre=None):
         mode = fp.gated_mode(cfg, graph, group)
@@ -930,13 +936,15 @@ def schur_linearize_solve(cfg: OptimizerConfig, group=None):
         return solve
 
     def _build(graph: FactorGraph2D, lam: torch.Tensor):
-        if fp.gated_mode(cfg, graph) is not None:
-            return fp.fused_precond_from_graph(cfg, graph, lam)
-        d = damp(_assemble(graph), lam)
-        hll_inv = inv_blocks(d.hll)
-        _, s_diag_fn = _matvec_and_sdiag(d, hll_inv, graph)
-        return build_precond(d, hll_inv, graph, s_diag_fn(), cfg.pcg_precond,
-                             cfg.pcg_coarse_group, cfg.pcg_chunk)
+        with tracing.span("toyslam.ops.precond"):
+            if fp.gated_mode(cfg, graph) is not None:
+                return fp.fused_precond_from_graph(cfg, graph, lam)
+            d = damp(_assemble(graph), lam)
+            hll_inv = inv_blocks(d.hll)
+            _, s_diag_fn = _matvec_and_sdiag(d, hll_inv, graph)
+            return build_precond(d, hll_inv, graph, s_diag_fn(),
+                                 cfg.pcg_precond, cfg.pcg_coarse_group,
+                                 cfg.pcg_chunk)
 
     def init_state(graph: FactorGraph2D):
         lam0 = torch.tensor(cfg.lambda_init, dtype=graph.poses.dtype,

@@ -31,6 +31,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from toyslam_torch import tracing
 from toyslam_torch.config import OptimizerConfig
 from toyslam_torch.models.graph import FactorGraph2D
 from toyslam_torch.ops import se2, se3
@@ -175,6 +176,12 @@ class GaussNewton:
 
 
 def _run(cfg, solve, retract, error_fn, graph: FactorGraph2D) -> OptimizeResult:
+    with tracing.span("toyslam.gn.optimize"):
+        return _loop(cfg, solve, retract, error_fn, graph)
+
+
+def _loop(cfg, solve, retract, error_fn,
+          graph: FactorGraph2D) -> OptimizeResult:
     dev, dtype = graph.device, graph.poses.dtype
 
     def scalar(v, dt=dtype):
@@ -197,55 +204,65 @@ def _run(cfg, solve, retract, error_fn, graph: FactorGraph2D) -> OptimizeResult:
     global_sum = getattr(solve, "global_sum", lambda *ts: ts)
 
     while it < cfg.iterations and not converged and not diverged:
-        g = graph.with_state(poses, landmarks)
-        if stateful:
-            dx_p, dx_l, err, stats, sstate = solve(g, lam, sstate)
-        else:
-            dx_p, dx_l, err, stats = solve(g, lam)
-        step_p = dx_p * cfg.lr
-        step_l = dx_l * cfg.lr
-        sq_p, sq_l = global_sum((step_p**2).sum(), (step_l**2).sum())
-        dx_norm = torch.sqrt(sq_p + sq_l)
-        errors[it] = err
-        pcg_iters[it] = stats.pcg_iters
-        pcg_residuals[it] = stats.pcg_residual
-        lambdas[it] = lam
+        with tracing.span("toyslam.gn.iteration"):
+            g = graph.with_state(poses, landmarks)
+            if stateful:
+                dx_p, dx_l, err, stats, sstate = solve(g, lam, sstate)
+            else:
+                dx_p, dx_l, err, stats = solve(g, lam)
+            with tracing.span("toyslam.gn.update"):
+                step_p = dx_p * cfg.lr
+                step_l = dx_l * cfg.lr
+                sq_p, sq_l = global_sum((step_p**2).sum(), (step_l**2).sum())
+                dx_norm = torch.sqrt(sq_p + sq_l)
+                errors[it] = err
+                pcg_iters[it] = stats.pcg_iters
+                pcg_residuals[it] = stats.pcg_residual
+                lambdas[it] = lam
 
-        if cfg.reject_worse_steps:
-            new_poses = retract(poses, step_p)
-            new_landmarks = landmarks + step_l
-            err_new = error_fn(graph.with_state(new_poses, new_landmarks))
-            accept = err_new <= err
-            lam = torch.where(
-                accept,
-                torch.clamp(lam / cfg.lambda_factor, min=cfg.lambda_min),
-                torch.clamp(lam * cfg.lambda_reject_factor,
-                            max=cfg.lambda_max),
-            )
-            poses = torch.where(accept, new_poses, poses)
-            landmarks = torch.where(accept, new_landmarks, landmarks)
-            prev_err = torch.where(accept, err_new, err)
-            penalty = torch.where(accept, 0, penalty + 1).to(torch.int32)
-            conv_t = accept & (dx_norm < cfg.convergence_eps)
-            div_t = torch.zeros_like(conv_t)  # lambda control bounds steps
-        else:
-            increased = (prev_err >= 0.0) & (err > prev_err)
-            lam = torch.where(
-                increased,
-                torch.clamp(lam * cfg.lambda_factor, max=cfg.lambda_max),
-                torch.clamp(lam / cfg.lambda_factor, min=cfg.lambda_min),
-            )
-            penalty = torch.where(increased, penalty + 1, 0).to(torch.int32)
-            div_t = penalty > cfg.penalty_limit
-            conv_t = (dx_norm < cfg.convergence_eps) & ~div_t
-            # on a divergence break the old state is kept
-            poses = torch.where(div_t, poses, retract(poses, step_p))
-            landmarks = torch.where(div_t, landmarks, landmarks + step_l)
-            prev_err = err
-        it += 1
-        converged, diverged = (
-            bool(v) for v in torch.stack([conv_t, div_t]).tolist()
-        )   # host sync, once per iteration
+                if cfg.reject_worse_steps:
+                    new_poses = retract(poses, step_p)
+                    new_landmarks = landmarks + step_l
+                    err_new = error_fn(graph.with_state(new_poses,
+                                                        new_landmarks))
+                    accept = err_new <= err
+                    lam = torch.where(
+                        accept,
+                        torch.clamp(lam / cfg.lambda_factor,
+                                    min=cfg.lambda_min),
+                        torch.clamp(lam * cfg.lambda_reject_factor,
+                                    max=cfg.lambda_max),
+                    )
+                    poses = torch.where(accept, new_poses, poses)
+                    landmarks = torch.where(accept, new_landmarks, landmarks)
+                    prev_err = torch.where(accept, err_new, err)
+                    penalty = torch.where(accept, 0,
+                                          penalty + 1).to(torch.int32)
+                    conv_t = accept & (dx_norm < cfg.convergence_eps)
+                    # lambda control bounds steps
+                    div_t = torch.zeros_like(conv_t)
+                else:
+                    increased = (prev_err >= 0.0) & (err > prev_err)
+                    lam = torch.where(
+                        increased,
+                        torch.clamp(lam * cfg.lambda_factor,
+                                    max=cfg.lambda_max),
+                        torch.clamp(lam / cfg.lambda_factor,
+                                    min=cfg.lambda_min),
+                    )
+                    penalty = torch.where(increased, penalty + 1,
+                                          0).to(torch.int32)
+                    div_t = penalty > cfg.penalty_limit
+                    conv_t = (dx_norm < cfg.convergence_eps) & ~div_t
+                    # on a divergence break the old state is kept
+                    poses = torch.where(div_t, poses, retract(poses, step_p))
+                    landmarks = torch.where(div_t, landmarks,
+                                            landmarks + step_l)
+                    prev_err = err
+                it += 1
+                converged, diverged = (
+                    bool(v) for v in torch.stack([conv_t, div_t]).tolist()
+                )   # host sync, once per iteration
 
     return OptimizeResult(
         graph=graph.with_state(poses, landmarks),
