@@ -70,13 +70,14 @@ Run from the root of a checkout.  Phases, each of which must pass:
    iterations 35, 35, 34, 33, 33, 32, 32, 32, 31, 31 and the phase-3
    values), the 10k scale path (the phase-7 values: they are the JAX
    package's plain-loop ones) and the ba128 BA row (``BA_REF``), each with
-   no kernel launch and its GN-iter/s (one timed optimize() each, cut
+   no PCG kernel launch and its GN-iter/s (one timed optimize() each, cut
    from 3 and 2 rounds with phases 24-27) beside the kernel path's;
 15. ``python -m toyslam_torch run --solver dense`` in process (ATE 0.7552,
    chi^2 228733.53 -> 27524.9, no launch) and the dense GN-iter/s;
 16. the bench suite's two 10k ``schur_grid`` rows (``GRID_CASES``), each
    under pcg_backend "auto" (the gate's decision printed), "fused" (B2
-   launched, B1 not) and "xla" (no launch), held to the JAX package's
+   launched, B1 not) and "xla" (no PCG kernel launch), held to the JAX
+   package's
    plain-loop values (``GRID_REF``) and timed;
 17. B2 on the grid path: timed on the 10k row's own operands (coarse level
    nc=320) against its plain version and its bound, with its per-phase
@@ -139,7 +140,8 @@ Run from the root of a checkout.  Phases, each of which must pass:
    150-pose main path with the JAX package's dryrun_multichip config
    (``DIST_CFG``), at 4 ranks sharing cuda:0 (gloo) and at 1 rank (NCCL):
    every pose within 5e-3 of the single-device plain loop's, ATE 0.7552
-   within 2e-3, every rank's bits equal, no kernel launched in any rank;
+   within 2e-3, every rank's bits equal, no PCG kernel launched in any
+   rank;
 25. ``dist_partition``: the same through the state-partitioned solve;
 26. ``dist_partition3d``: the partitioned SE(3) solve at 4 ranks on
    ``make_ba_problem(48, 160, 16, seed=1)`` (``DIST3D_*``): chi^2 within
@@ -199,6 +201,20 @@ Run from the root of a checkout.  Phases, each of which must pass:
    its 8 bytes (line ``b1_kernel_attrs``); and one
    optimize of multi-loop-1k, every launch on the card-wide schedule, held
    to the suite's gate (line ``b1_multi_loop_path``).
+32. ``pcr_factor``: the PCR build's kernel (``ops/pcr.py``) on the
+   GN-iteration-0 S diagonal and chain coupling of the main path (dp=3,
+   Np=192), of the 10k scale path and of the ba128 BA row (dp=6, Np=128),
+   and on seeded chains of the multi-loop-1k (Np=1088) and ba3d-defaults
+   (dp=6, Np=64) layouts: each held against its plain version in float64
+   (within 1e-5 of max|plain| for the alphas, the gammas and binv each),
+   the same bits on a rerun, one launch a build (line ``pcr_check``); the
+   paths' three timed, device ms (CUDA events, launches queued behind a
+   sleeping kernel) and host ms, against the plain version's float32 build
+   on the card and the bound (line ``pcr_factor``).
+Every path that builds a tridiagonal preconditioner on the card, the plain
+PCG loop and the sharded ranks included, builds it with the PCR kernel,
+one launch a build: the paths' checks count those launches apart from the
+PCG kernels' (``solve_launches``, ``pcr_builds``).
 Each of phases 24-27 prints a ``dist_timing`` line (GN-iter/s at 4 and 1
 ranks beside the single-device plain loop, ms per collective) with the
 card's name and power limit: ranks that share one card take turns on it,
@@ -222,7 +238,8 @@ its path, largest difference from the plain version, ms, plain_ms,
 bound_ms, bound_by, library_ms; the same for B1 and B2 at dp=6, for B2 on
 the grid path, at 100k and on the incrementally initialised 100k graph,
 for B1 on the serving path at both request sizes and at multi-loop-1k's
-Np=1088, with the launches of each benchmark entry point's row under
+Np=1088, for the PCR build at its three layouts under ``by_layout``, with
+the launches of each benchmark entry point's row under
 ``bench`` and of each scale entry point's row under ``scale_entry`` with
 the new shapes' times, B1 by schedule under ``schedules`` with each
 schedule's launches and its times at the layouts it serves, and for B3 at
@@ -261,6 +278,12 @@ KERNELS = {
         "route": "cuda",
         "source": "toyslam_torch/csrc/slab_band_matvec.cu",
         "replaces": "scripts/exp_band_kernel.py:36",
+    },
+    "pcr_factor": {
+        "name": "pcr_factor",
+        "route": "cuda",
+        "source": "toyslam_torch/csrc/pcr_factor.cu",
+        "replaces": "none: toyslam_torch/ops/schur.py::build_tridiag_planes_ref",
     },
 }
 REL_TOL = 1e-4
@@ -515,20 +538,41 @@ def chunk_fns(kernel, schedule=None):
 def reset_counts():
     from toyslam_torch.ops import band_matvec as bmv
     from toyslam_torch.ops import fused_pcg as fp
+    from toyslam_torch.ops import pcr
 
     fp.fused_pcg_chunk.launches = 0
     fp.fused_pcg_chunk.schedule_launches = dict.fromkeys(fp.B1_SCHEDULES, 0)
     fp.band_fused_pcg_chunk.launches = 0
     bmv.slab_band_matvec.launches = 0
+    pcr.pcr_factor.launches = 0
 
 
 def read_counts():
     from toyslam_torch.ops import band_matvec as bmv
     from toyslam_torch.ops import fused_pcg as fp
+    from toyslam_torch.ops import pcr
 
     return {"fused_pcg_chunk": fp.fused_pcg_chunk.launches,
             "band_fused_pcg_chunk": fp.band_fused_pcg_chunk.launches,
-            "slab_band_matvec": bmv.slab_band_matvec.launches}
+            "slab_band_matvec": bmv.slab_band_matvec.launches,
+            "pcr_factor": pcr.pcr_factor.launches}
+
+
+def solve_launches(counts):
+    """The launches of :func:`read_counts` but the PCR build's: the PCG
+    kernels and B3.  The plain PCG loop, the dense solver and the sharded
+    ranks make none of them; every solve that builds a tridiagonal
+    preconditioner on the card launches the PCR kernel (``pcr_factor``)."""
+    return sum(v for k, v in counts.items() if k != "pcr_factor")
+
+
+def pcr_builds(cfg, iterations_run):
+    """The PCR kernel's launches of one optimize() on the card: one per
+    preconditioner build, every ``pcg_precond_refresh`` GN iterations,
+    where the local preconditioner is tridiagonal."""
+    if cfg.pcg_precond.partition("+")[0] != "tridiag":
+        return 0
+    return -(-iterations_run // cfg.pcg_precond_refresh)
 
 
 def read_b1_schedules():
@@ -915,6 +959,8 @@ def phase_main_path(device):
     checks = {
         "B1 launches > 0": m["kernel_launches"]["fused_pcg_chunk"] > 0,
         "B2 not launched": m["kernel_launches"]["band_fused_pcg_chunk"] == 0,
+        "PCR kernel once a build": m["kernel_launches"]["pcr_factor"]
+        == pcr_builds(gn.config, m["iterations_run"]),
         "finite": m["finite"],
         "ate": abs(m["ate_rmse"] - ATE_REF) <= ATE_TOL,
         "ate_dr": abs(m["ate_dead_reckoning"] - ATE_DR_REF) <= 1e-4,
@@ -1144,11 +1190,13 @@ def device_time(gn, gdev, reps=5):
 
 
 def phase_shape(device):
-    m, _, _ = run_path(2000, device)
+    m, gn, _ = run_path(2000, device)
     log("shape_check " + json.dumps(m))
     checks = {
         "B1 launches > 0": m["kernel_launches"]["fused_pcg_chunk"] > 0,
         "B2 not launched": m["kernel_launches"]["band_fused_pcg_chunk"] == 0,
+        "PCR kernel once a build": m["kernel_launches"]["pcr_factor"]
+        == pcr_builds(gn.config, m["iterations_run"]),
         "finite": m["finite"],
         "chi2 decreases": m["chi2"][-1] < m["chi2"][0],
         "ate < dead reckoning": m["ate_rmse"] < m["ate_dead_reckoning"],
@@ -1428,6 +1476,8 @@ def phase_scale_path(device):
     checks = {
         "B2 launches": launches["band_fused_pcg_chunk"] == SCALE_LAUNCHES,
         "B1 not launched": launches["fused_pcg_chunk"] == 0,
+        "PCR kernel once a build": launches["pcr_factor"]
+        == pcr_builds(gn.config, m["iterations_run"]),
         "finite": m["finite"],
         "iterations": m["iterations_run"] == SCALE_GN_ITERS,
         "pcg iterations": pcg == [SCALE_PCG_ITERS] * SCALE_GN_ITERS,
@@ -1872,8 +1922,9 @@ def failed_checks(name, checks):
 def phase_plain_loop(device, state):
     """The plain PCG loop (pcg_backend="xla") on the main path, the 10k
     scale path and the ba128 BA row, each held to its reference values with
-    no kernel launch, and its GN-iter/s beside the kernel path's of the same
-    call."""
+    no PCG kernel launch, and its GN-iter/s beside the kernel path's of the
+    same call.  The plain loop's tridiagonal preconditioner is built by the
+    PCR kernel on the card as the kernel path's is: one launch a build."""
     import dataclasses
 
     from toyslam_torch.optimizer import GaussNewton
@@ -1882,7 +1933,9 @@ def phase_plain_loop(device, state):
     out = {}
     m, gn, gdev = run_path(150, device, pcg_backend="xla")
     checks = {
-        "no launch": sum(m["kernel_launches"].values()) == 0,
+        "no PCG kernel launch": solve_launches(m["kernel_launches"]) == 0,
+        "PCR kernel once a build": m["kernel_launches"]["pcr_factor"]
+        == pcr_builds(gn.config, m["iterations_run"]),
         "finite": m["finite"],
         "pcg iterations": m["pcg_iters"] == MAIN_PCG_ITERS,
         "ate": abs(m["ate_rmse"] - ATE_REF) <= ATE_TOL,
@@ -1909,7 +1962,9 @@ def phase_plain_loop(device, state):
          "ate_rmse": frontend.ate_rmse(est[:n], poses_gt),
          "kernel_launches": launches}
     checks = {
-        "no launch": sum(launches.values()) == 0,
+        "no PCG kernel launch": solve_launches(launches) == 0,
+        "PCR kernel once a build": launches["pcr_factor"]
+        == pcr_builds(gn.config, it),
         "iterations": it == SCALE_GN_ITERS,
         "pcg iterations": m["pcg_iters"] == [SCALE_PCG_ITERS] * SCALE_GN_ITERS,
         "chi2_first": math.isclose(errors[0], SCALE_CHI2_FIRST, rel_tol=1e-4),
@@ -2031,6 +2086,8 @@ def phase_grid_paths(device):
             checks = {
                 "launches": launches["fused_pcg_chunk"] == 0
                 and ((b2 > 0) if band_run else (b2 == 0)),
+                "PCR kernel once a build": launches["pcr_factor"]
+                == pcr_builds(gn.config, it),
                 "finite": bool(np.isfinite(est).all()
                                and np.isfinite(errors).all()),
                 "iterations": it == gn.config.iterations,
@@ -2231,7 +2288,8 @@ class PlainCalls:
     loop while active: the serving path on the card must make none."""
 
     NAMES = (("fused_pcg", "fused_pcg_chunk_ref"),
-             ("fused_pcg", "band_fused_pcg_chunk_ref"), ("schur", "pcg"))
+             ("fused_pcg", "band_fused_pcg_chunk_ref"), ("schur", "pcg"),
+             ("schur", "build_tridiag_planes_ref"))
 
     def __enter__(self):
         import functools
@@ -2356,7 +2414,10 @@ def phase_serve(device):
     t1 = time.perf_counter()
     decoded = codec.bytes_to_graph(wire)
     t2 = time.perf_counter()
-    local = gn.optimize(decoded.to(device)).graph.poses.cpu()
+    res_local = gn.optimize(decoded.to(device))
+    local = res_local.graph.poses.cpu()
+    # the PCR kernel's launches a 150-pose request makes: one a GN iteration
+    builds150 = pcr_builds(cfg.optimizer, res_local.iterations_run)
     host = {"wire_bytes_150": len(wire), "encode_ms_150": (t1 - t0) * 1e3,
             "decode_ms_150": (t2 - t1) * 1e3}
     log("serve_codec " + json.dumps(host))
@@ -2412,11 +2473,12 @@ def phase_serve(device):
             "remote equals local at 1e-5": bool(np.allclose(
                 a150[0].poses[real].numpy(), local[real].numpy(),
                 rtol=1e-5, atol=1e-5)),
-            "25 B1 launches per 150-pose request": all(
-                r["kernel_launches"] == {"fused_pcg_chunk": 25,
-                                         "band_fused_pcg_chunk": 0,
-                                         "slab_band_matvec": 0}
-                for r in rows[:3]),
+            "25 B1 launches and one PCR launch a build per 150-pose request":
+                all(r["kernel_launches"] == {"fused_pcg_chunk": 25,
+                                             "band_fused_pcg_chunk": 0,
+                                             "slab_band_matvec": 0,
+                                             "pcr_factor": builds150}
+                    for r in rows[:3]),
             "2000-pose request through B1":
                 rows[3]["kernel_launches"]["fused_pcg_chunk"] > 0
                 and rows[3]["kernel_launches"]["band_fused_pcg_chunk"] == 0,
@@ -2427,7 +2489,8 @@ def phase_serve(device):
             "run --remote": code == 0 and cli.get("backend") == "remote"
             and abs(cli["ate_rmse"] - ATE_REF) <= ATE_TOL
             and cli["kernel_launches"] == 25
-            and cli_launches["fused_pcg_chunk"] == 25,
+            and cli_launches["fused_pcg_chunk"] == 25
+            and cli_launches["pcr_factor"] == builds150,
         }
         out[kind] = {"requests": rows, "checks": checks,
                      "remote_cli": cli, "plain_calls": plain_calls}
@@ -3008,8 +3071,8 @@ def phase_incr100k(device):
         "init inside the basin":
             m["chi2_after_init"] < 1e-2 * m["chi2_dead_reckoning"],
         "auto takes the plain loop":
-            sum(m["init_launches"].values()) == 0
-            and sum(m["kernel_launches"].values()) == 0,
+            solve_launches(m["init_launches"]) == 0
+            and solve_launches(m["kernel_launches"]) == 0,
         "final chi2 within 1.5x of the JAX package's":
             m["chi2_final"] < 1.5 * INCR100K_JAX["chi2_final"],
     }
@@ -3173,9 +3236,12 @@ def dist_single(device):
 def phase_dist(device, solve, smi, state):
     """Phases 24-25: the launcher at 4 ranks on cuda:0 (gloo) and at 1 rank
     (NCCL), held to the single-device plain loop (run once for both
-    phases) and the main path's ATE, with every rank's bits equal and no
-    kernel launched in any rank."""
+    phases) and the main path's ATE, with every rank's bits equal, no PCG
+    kernel launched in any rank and one PCR launch a preconditioner build
+    in each."""
     import numpy as np
+
+    from toyslam_torch.config import OptimizerConfig
 
     if "dist_single" not in state:
         state["dist_single"] = dist_single(device)
@@ -3197,8 +3263,12 @@ def phase_dist(device, solve, smi, state):
             "ok": a["ok"],
             "backend": a["backend"] == backend,
             "bitwise across ranks": a["bitwise_agreement_across_processes"],
-            "no launch in any rank": all(
-                sum(k.values()) == 0 for k in a["kernel_launches"]),
+            "no PCG kernel launch in any rank": all(
+                solve_launches(k) == 0 for k in a["kernel_launches"]),
+            "PCR kernel once a build in every rank": all(
+                k["pcr_factor"] == pcr_builds(
+                    OptimizerConfig(**DIST_CFG), r["iterations_run"])
+                for k in a["kernel_launches"]),
             "pose vs single-device": dev < 5e-3,
             "ate": abs(r["ate_rmse"] - ATE_REF) <= ATE_TOL,
             "iterations": r["iterations_run"] == DIST_CFG["iterations"],
@@ -3425,8 +3495,12 @@ def phase_dist_scale(device, smi):
             PART_REF["boundary_pose_frac"], PART_REF["boundary_lm_frac"]),
         "same trajectory on every rank": all(
             np.array_equal(x["poses"], r["poses"]) for x in ranks),
-        "no launch in any rank": all(sum(x["launches"].values()) == 0
-                                     for x in ranks),
+        "no PCG kernel launch in any rank": all(
+            solve_launches(x["launches"]) == 0 for x in ranks),
+        "PCR kernel once a build in every rank": all(
+            x["launches"]["pcr_factor"] == pcr_builds(
+                OptimizerConfig(**DIST_SCALE_CFG), x["iterations_run"])
+            for x in ranks),
     }
     log("dist_scale " + json.dumps(m))
     failed_checks("dist scale", checks)
@@ -3796,6 +3870,194 @@ def phase_scale_entry(device, state):
     return out
 
 
+# --- phase 32: the PCR build's kernel ----------------------------------------
+
+# The PCR kernel held against its plain version in float64 from the same
+# float32 blocks: max |kernel - plain| within PCR_REL_TOL of max |plain|, for
+# the alphas, the gammas and binv each (tests/test_torch_pcr_factor.py)
+PCR_REL_TOL = 1e-5
+# f32 operations a pose of one block inverse: the adjugate at dp=3 (27 for
+# the cofactors, 5 for the determinant, a division, 9 scalings),
+# Gauss-Jordan at dp=6
+PCR_INVERSE_FLOPS = {3: 42, 6: 2 * 6 ** 3 + 6 ** 2}
+
+
+def pcr_bound(dp, n):
+    """The least time of one PCR build of ``n`` poses: the blocks read and
+    the factors written once at the HBM rate, or the plain version's f32
+    operations at the f32 peak (a level a pose: six dp x dp products, two
+    block sums, two negations and an inverse; one inverse more at the
+    start), whichever is larger."""
+    levels = max(1, (n - 1).bit_length())
+    nbytes = 4 * dp * dp * n * (2 + 2 * levels + 1)
+    inv = PCR_INVERSE_FLOPS[dp]
+    flops = n * (levels * (12 * dp ** 3 + 4 * dp ** 2 + inv) + inv)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def pcr_path_chain(gn, gdev, mode="resident"):
+    """A path's GN-iteration-0 S diagonal and chain coupling, block layout
+    ``[N, dp, dp]``: what its preconditioner's PCR build reads."""
+    from toyslam_torch.ops import schur
+
+    state, layers = layer_system(gn, gdev, mode)
+    for _, fn in layers[:2]:          # assemble; damp, eliminate, S diagonal
+        fn()
+    upper = schur.chain_upper(state["d"], gdev.odom.i, gdev.odom.j,
+                              gdev.num_poses)
+    return state["s_diag"].contiguous(), upper.contiguous()
+
+
+def pcr_seeded_chain(n, dp, seed, device):
+    """A seeded chain whose SPD diagonal blocks dominate their couplings
+    (tests/test_torch_pcr_factor.py::_chain)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(n, dp, dp))
+    diag = a @ a.transpose(0, 2, 1) / dp + 2.0 * np.eye(dp)
+    upper = rng.normal(0.0, 0.3 * (3 / dp) ** 0.5, size=(n, dp, dp))
+    upper[-1] = 0.0
+    return (torch.tensor(diag, dtype=torch.float32, device=device),
+            torch.tensor(upper, dtype=torch.float32, device=device))
+
+
+def pcr_check(case, diag, upper):
+    """The dispatch's factors (one kernel launch) against the plain version
+    in float64 from the same blocks, and a second launch's bits."""
+    import torch
+
+    from toyslam_torch.ops import pcr, schur
+
+    n, dp = diag.shape[0], diag.shape[1]
+    before = pcr.pcr_factor.launches
+    got = schur.build_tridiag_planes(diag.permute(1, 2, 0),
+                                     upper.permute(1, 2, 0))
+    again = schur.build_tridiag_planes(diag.permute(1, 2, 0),
+                                       upper.permute(1, 2, 0))
+    torch.cuda.synchronize()
+    launches = pcr.pcr_factor.launches - before
+    want = schur.build_tridiag_planes_ref(diag.double().permute(1, 2, 0),
+                                          upper.double().permute(1, 2, 0))
+    rel, max_abs = {}, 0.0
+    for name, g, w in zip(("alphas", "gammas", "binv"), got, want):
+        err = float((g.double() - w).abs().max())
+        rel[name] = err / float(w.abs().max())
+        max_abs = max(max_abs, err)
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    return {"case": case, "poses": n, "dp": dp,
+            "levels": pcr.pcr_levels(n), "launches": launches,
+            "rel": rel, "max_abs_err": max_abs, "rerun_identical": same,
+            "ok": launches == 2 and same and finite
+            and all(e <= PCR_REL_TOL for e in rel.values())}
+
+
+def queued_ms(fn, reps):
+    """Mean device ms of ``fn``'s launch: CUDA events around each of
+    ``reps`` calls queued behind a sleeping kernel, so the host's enqueue
+    is not in them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int(2e5) * reps)   # ~0.1 ms of the card's clock a call
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.fmean(s.elapsed_time(e) for s, e in events)
+
+
+def host_ms(fn, reps, sync):
+    """Mean host ms of a call (``sync``: a call and a synchronize)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        if sync:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def pcr_times(diag, upper, reps=50):
+    """One build through the kernel and through its plain version (float32
+    on the card, the build before the kernel) in turns (plain, kernel,
+    kernel, plain): the kernel's device ms, its host ms a call (enqueue
+    only) and a call and a synchronize; the plain version's ms a call and a
+    synchronize."""
+    from toyslam_torch.ops import schur
+
+    dp_, up_ = diag.permute(1, 2, 0), upper.permute(1, 2, 0)
+
+    def kernel():
+        schur.build_tridiag_planes(dp_, up_)
+
+    def plain():
+        schur.build_tridiag_planes_ref(dp_, up_)
+
+    out = {"plain": [host_ms(plain, max(1, reps // 5), True)]}
+    for _ in range(2):
+        out.setdefault("kernel", []).append(queued_ms(kernel, reps))
+        out.setdefault("kernel_host", []).append(host_ms(kernel, reps, False))
+        out.setdefault("kernel_wall", []).append(host_ms(kernel, reps, True))
+    out["plain"].append(host_ms(plain, max(1, reps // 5), True))
+    return out
+
+
+def phase_pcr_factor(device, state):
+    """The PCR build's kernel (``ops/pcr.py``, ``pcr_factor_kernel``) on
+    the paths' own operands, the GN-iteration-0 S diagonal and chain
+    coupling of the main path (dp=3, Np=192), of the 10k scale path and of
+    the ba128 BA row (dp=6, Np=128), and on seeded chains of the
+    multi-loop-1k and ba3d-defaults layouts: each held against its plain
+    version in float64 (``PCR_REL_TOL``, the same bits on a rerun, one
+    launch a build), and the paths' three timed against the plain version
+    and the bound (line ``pcr_factor``)."""
+    import torch
+
+    from toyslam_torch.ops import pcr
+
+    chains = {
+        "main_dp3": pcr_path_chain(state["gn"], state["gdev"]),
+        "scale10k_dp3": pcr_path_chain(state["sgn"], state["sgdev"], "band"),
+        "ba128_dp6": pcr_path_chain(state["bgn"], state["bgdev"]),
+        "multiloop_dp3_seeded": pcr_seeded_chain(1088, 3, 11, device),
+        "ba3d_dp6_seeded": pcr_seeded_chain(64, 6, 12, device),
+    }
+    checks = [pcr_check(case, *chain) for case, chain in chains.items()]
+    for r in checks:
+        log("pcr_check " + json.dumps(r))
+    layouts = {}
+    for case in ("main_dp3", "scale10k_dp3", "ba128_dp6"):
+        diag, upper = chains[case]
+        n, dp = diag.shape[0], diag.shape[1]
+        layouts[case] = dict(
+            poses=n, dp=dp, levels=pcr.pcr_levels(n),
+            ms=pcr_times(diag, upper), bound=pcr_bound(dp, n),
+            attrs=pcr.pcr_kernel_attrs(dp))
+    torch.cuda.synchronize()
+    out = {"checks": checks, "layouts": layouts,
+           "max_abs": max(r["max_abs_err"] for r in checks)}
+    log("pcr_factor " + json.dumps(layouts))
+    bad = [r for r in checks if not r["ok"]]
+    if bad:
+        raise AssertionError(f"PCR kernel disagrees with plain version: "
+                             f"{bad}")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3905,6 +4167,8 @@ def main(argv=None) -> int:
             scale_entry=phase_scale_entry(device, state))),
         ("b1_layouts", lambda: state.update(
             b1_layouts=phase_b1_layouts(device))),
+        ("pcr_factor", lambda: state.update(
+            pcr=phase_pcr_factor(device, state))),
     ]
     extra = {"incr100k_diag": lambda: phase_incr100k_diag(device)}
     if only is not None:
@@ -4163,7 +4427,36 @@ def main(argv=None) -> int:
         max_abs_err=max(r["max_abs_err"] for r in sl.values()),
         **slab_times(sl["W576_B512"]), library_ms=None,
         by_shape={k: slab_times(r) for k, r in sl.items()})
-    log(json.dumps({"kernels": [b1, b2, b3]}))
+    # the PCR build (phase 32): its launches on the paths, one a build;
+    # timed on the main path's, the 10k scale path's and the ba128 row's own
+    # GN-iteration-0 operands.  library_ms: no single PyTorch call factors
+    # a block-tridiagonal chain
+    pk = state["pcr"]
+    pcr_paths = {
+        "main_path": state["main"]["kernel_launches"]["pcr_factor"],
+        "shape_2000": state["shape"]["kernel_launches"]["pcr_factor"],
+        "scale_path": state["scale"]["kernel_launches"]["pcr_factor"],
+        "ba128": state["ba"]["ba128"]["kernel_launches"]["pcr_factor"],
+        "plain_loop_main": state["plain"]["main"]["kernel_launches"][
+            "pcr_factor"],
+    }
+
+    def pcr_timed(lay):
+        return dict(poses=lay["poses"], dp=lay["dp"], levels=lay["levels"],
+                    ms=statistics.mean(lay["ms"]["kernel"]),
+                    host_ms=statistics.mean(lay["ms"]["kernel_host"]),
+                    wall_ms=statistics.mean(lay["ms"]["kernel_wall"]),
+                    plain_ms=statistics.mean(lay["ms"]["plain"]),
+                    bound_ms=lay["bound"]["bound_ms"],
+                    bound_by=lay["bound"]["bound_by"], attrs=lay["attrs"],
+                    library_ms=None)
+
+    pf = dict(KERNELS["pcr_factor"])
+    pf.update(launches=pcr_paths["main_path"], launches_by_path=pcr_paths,
+              max_abs_err=pk["max_abs"],
+              **pcr_timed(pk["layouts"]["main_dp3"]),
+              by_layout={k: pcr_timed(v) for k, v in pk["layouts"].items()})
+    log(json.dumps({"kernels": [b1, b2, b3, pf]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -897,8 +897,8 @@ def _pcr_system(np_, mw, nc=0, seed=0, dp=3):
     """:func:`_tiny_system` preconditioned by PCR on its chain (the split
     schedules distribute the PCR levels over a cluster)."""
     op, pre, rhs = _tiny_system(np_, mw, nc, seed, dp)
-    al, ga, binv = schur.build_tridiag_planes(op.tdiag.double(),
-                                              op.tupper.double())
+    al, ga, binv = schur.build_tridiag_planes_ref(op.tdiag.double(),
+                                                  op.tupper.double())
     pre = pre._replace(alphas=al.float().contiguous(),
                        gammas=ga.float().contiguous(),
                        binv=binv.float().contiguous())

@@ -35,7 +35,8 @@ def test_two_rank_launch_agrees_bitwise(tmp_path, solves):
     for solve, run in line["runs"].items():
         assert run["ok"] and run["bitwise_agreement_across_processes"]
         assert run["kernel_launches"] == [
-            {"fused_pcg_chunk": 0, "band_fused_pcg_chunk": 0}] * 2
+            {"fused_pcg_chunk": 0, "band_fused_pcg_chunk": 0,
+             "pcr_factor": 0}] * 2
         r = run["result"]
         assert r["iterations_run"] == 4 and r["ate_rmse"] < 3.0
         assert r["gn_iters_per_s"] > 0 and r["collectives"] > 0

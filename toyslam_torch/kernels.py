@@ -53,7 +53,8 @@ def _nvcc() -> str:
     return nvcc
 
 
-KERNELS = ("fused_pcg_chunk", "band_fused_pcg_chunk", "slab_band_matvec")
+KERNELS = ("fused_pcg_chunk", "band_fused_pcg_chunk", "slab_band_matvec",
+           "pcr_factor")
 
 _loaded: dict[str, KernelLibrary] = {}
 

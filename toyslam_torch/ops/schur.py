@@ -43,6 +43,7 @@ from toyslam_torch.ops import blockmath as bm
 from toyslam_torch.ops import edge_blocks
 from toyslam_torch.ops.collective import all_reduce
 from toyslam_torch.ops import gather_plan as gp
+from toyslam_torch.ops import pcr
 from toyslam_torch.ops import residuals as res_ops
 
 
@@ -388,7 +389,22 @@ def build_tridiag_planes(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """PCR factorization in component-plane layout ``[d, d, N]``.  Returns
     ``(alphas [L,d,d,N], gammas [L,d,d,N], binv [d,d,N])`` — the layout
-    the fused kernel reads."""
+    the fused kernels read.  On CUDA tensors one launch of the
+    hand-written kernel (``ops/pcr.py::pcr_factor``, which reads the
+    block layout ``[N, d, d]`` the callers hold and raises for a dtype
+    other than float32 or a d it is not built for); on the CPU the plain
+    version :func:`build_tridiag_planes_ref`."""
+    if diag_p.is_cuda:
+        return pcr.pcr_factor(diag_p.permute(2, 0, 1).contiguous(),
+                              upper_p.permute(2, 0, 1).contiguous())
+    return build_tridiag_planes_ref(diag_p, upper_p)
+
+
+def build_tridiag_planes_ref(
+    diag_p: torch.Tensor, upper_p: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`build_tridiag_planes`: every level's
+    block products as PyTorch operations on the planes."""
     n = diag_p.shape[-1]
     levels = max(1, (n - 1).bit_length())
     a = _pl_t(_pl_shift_down(upper_p, 1))   # A[v] = upper[v-1]^T

@@ -118,6 +118,7 @@ def optimize_rank(mesh, steps: int, iterations: int, reps: int,
 
 def _optimize_solve(mesh, sim, graph, opt, reps, solve):
     from toyslam_torch.ops import fused_pcg as fp
+    from toyslam_torch.ops import pcr
     from toyslam_torch.ops.collective import all_reduce
     from toyslam_torch.optimizer import GaussNewton
     from toyslam_torch.parallel import (
@@ -135,6 +136,7 @@ def _optimize_solve(mesh, sim, graph, opt, reps, solve):
 
     fp.fused_pcg_chunk.launches = 0
     fp.band_fused_pcg_chunk.launches = 0
+    pcr.pcr_factor.launches = 0
     all_reduce.calls = 0
     t0 = time.perf_counter()
     r = gn.optimize(gprep)
@@ -142,7 +144,8 @@ def _optimize_solve(mesh, sim, graph, opt, reps, solve):
     wall = [time.perf_counter() - t0]
     calls = all_reduce.calls
     launches = {"fused_pcg_chunk": fp.fused_pcg_chunk.launches,
-                "band_fused_pcg_chunk": fp.band_fused_pcg_chunk.launches}
+                "band_fused_pcg_chunk": fp.band_fused_pcg_chunk.launches,
+                "pcr_factor": pcr.pcr_factor.launches}
     for _ in range(reps):
         t0 = time.perf_counter()
         gn.optimize(gprep)
