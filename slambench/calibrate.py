@@ -1,7 +1,8 @@
 """The readings that a configuration's limits are set from: per seed, the
-numbers ``check.py`` compares for the program's answer (the lower
-reading), for the control's and for faults planted in the program (the
-upper ones).
+numbers the configuration's family compares (``families/<name>.py``: the
+program's graph, the reference, its precisions and ``gaps``) for the
+program's answer (the lower reading), for the control's and for faults
+planted in the program (the upper ones).
 
     python -m slambench.calibrate --workload CELL --seeds 1,2,3 \
         [--control] [--f32] [--faults stop_after_2,no_refresh]
@@ -9,10 +10,10 @@ upper ones).
 For each seed, in one process: the cell's graph from that seed, one call
 of the program through the cell's own driver and entry
 (``drivers/<name>.py``, as the timed window calls it), the float64
-reference, and with ``--control`` the reference computed in float32 with
-TF32 products, put in the program's place.  ``--faults`` (in-process
-cells) calls the program again with its optimizer changed as each named
-fault says (``FAULTS``).
+reference, and with ``--control`` the family's control (SE(2): the
+reference computed in float32 with TF32 products), put in the program's
+place.  ``--faults`` (in-process cells) calls the program again with its
+optimizer changed as each named fault says (``FAULTS``).
 One JSON line per seed.  A remote cell keeps one server for all the
 seeds.  Needs the CUDA device the cell asks for; the tests run it on the
 CPU at a small size.
@@ -26,7 +27,7 @@ import sys
 
 import torch
 
-from slambench import cells, check, generators, reference, run
+from slambench import cells, generators, run
 
 
 # faults planted in the program by its own options: a GN loop stopped
@@ -42,13 +43,12 @@ FAULTS = {
 def readings(cell, seeds, device, control: bool = False, f32: bool = False,
              faults=(), out=None):
     """One dict per seed: ``{"seed", "program": {...}, "control": {...},
-    "float32": {...}}``, each the compared numbers (``check.gaps``);
+    "float32": {...}}``, each the compared numbers (the family's ``gaps``);
     ``float32``: the reference in plain float32, a sound float32 solve
     that says how far rounding alone moves the numbers; ``faults``: the
     program with each named fault, under its name."""
     out = out or sys.stdout
-    from toyslam_torch.models.graph import graph_from_numpy
-
+    family = cells.family(cell)
     opt = cell.config["optimizer"]
     driver = cells.driver(cell)(cell, seeds[0], device)
     in_process = hasattr(driver, "gn")
@@ -57,7 +57,7 @@ def readings(cell, seeds, device, control: bool = False, f32: bool = False,
     try:
         for seed in seeds:
             problem = generators.generate(cell.graph, seed, cell.root)
-            graph = graph_from_numpy(**problem["graph"])
+            graph = family.program_graph(problem["graph"])
             for variant in ("program",) + tuple(faults):
                 if not in_process:
                     driver.graphs = [graph]
@@ -77,25 +77,24 @@ def readings(cell, seeds, device, control: bool = False, f32: bool = False,
         by_seed.setdefault(seed, (problem, {}))[1][variant] = answer
     for seed, (problem, answers) in by_seed.items():
         g = problem["graph"]
-        ref = reference.optimize(g, opt, device)
+        ref = family.optimize(g, opt, device, family.REFERENCE)
         row = {"seed": seed, "reference": {
             "iterations": ref.iterations_run, "errors": ref.errors}}
         for variant, answer in answers.items():
-            row[variant] = check.gaps(
+            row[variant] = family.gaps(
                 g, problem["n_poses"], problem["n_landmarks"], opt, ref,
                 [tuple(answer)], device)
             if answer[2] is not None:
                 row[variant]["errors"] = answer[2].tolist()
         if control:
-            ctl = reference.optimize(g, opt, device, reference.CONTROL)
-            row["control"] = check.gaps(
+            ctl = family.optimize(g, opt, device, family.CONTROL)
+            row["control"] = family.gaps(
                 g, problem["n_poses"], problem["n_landmarks"], opt, ref,
                 [(ctl.poses.cpu(), ctl.landmarks.cpu(),
                   torch.tensor(ctl.errors))], device)
         if f32:
-            plain = reference.optimize(g, opt, device, reference.Precision(
-                torch.float32, False))
-            row["float32"] = check.gaps(
+            plain = family.optimize(g, opt, device, family.FLOAT32)
+            row["float32"] = family.gaps(
                 g, problem["n_poses"], problem["n_landmarks"], opt, ref,
                 [(plain.poses.cpu(), plain.landmarks.cpu(),
                   torch.tensor(plain.errors))], device)

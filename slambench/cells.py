@@ -1,11 +1,17 @@
 """What ``BENCHMARK.json`` names, found by name: the cell, its
-configuration file, its traffic mix and the readers of its metrics.
+configuration file, its family, its traffic mix and the readers of its
+metrics.
 
 * a configuration is ``configs/<name>.json`` (the file ``BENCHMARK.json``
   gives): the generated graph (``graph``, its ``kind`` and parameters),
   the optimizer as it is run (``optimizer``,
-  ``toyslam_torch.config.OptimizerConfig``'s fields), and the numbers
-  ``correct`` compares with their limits;
+  ``toyslam_torch.config.OptimizerConfig``'s fields), the numbers
+  ``correct`` compares with their limits, and ``family``, the name of its
+  family (``"se2"`` where absent);
+* a family is ``families/<name>.py``: the kind of problem a configuration
+  solves, with the program's graph of the generated arrays, the plain
+  reference and the comparison that decide ``correct``
+  (``families/se2.py`` says what it provides);
 * a traffic mix is ``traffic/<name>.json``: the driver that calls the
   program, its warm-up and traced-window lengths, and ``graph`` keys that
   override the configuration's;
@@ -15,8 +21,8 @@ configuration file, its traffic mix and the readers of its metrics.
 * a per-layer metric is ``metrics/<name>.py`` with ``read(readings)``,
   which returns a number or None where it finds nothing to read.
 
-A cell, a configuration, a graph kind, a driver or a metric is added by
-adding its files and its ``BENCHMARK.json`` entries.
+A cell, a configuration, a family, a graph kind, a driver or a metric is
+added by adding its files and its ``BENCHMARK.json`` entries.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ class Cell(NamedTuple):
     chips: int
     config: dict
     config_file: Path
+    family: str             # families/<family>.py
     traffic: dict
     graph: dict             # the configuration's graph with the mix's keys
     end_to_end: list        # BENCHMARK.json entries this cell reports
@@ -64,7 +71,7 @@ def cell(name: str, root: Path = ROOT) -> Cell:
         (root / PACKAGE / "traffic" / f"{w['traffic']}.json").read_text())
     return Cell(
         name=name, chips=w["chips"], config=config, config_file=config_file,
-        traffic=traffic,
+        family=config.get("family", "se2"), traffic=traffic,
         graph={**config["graph"], **traffic.get("graph", {})},
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],
         per_layer=[m for m in bench["per_layer"] if _reports(m, name)],
@@ -104,3 +111,8 @@ def reader(metric: str, root: Path = ROOT):
 def driver(c: Cell):
     """The ``Driver`` class of the cell's traffic mix."""
     return load("drivers", c.traffic["driver"], c.root).Driver
+
+
+def family(c: Cell):
+    """The module ``families/<family>.py`` of the cell's configuration."""
+    return load("families", c.family, c.root)

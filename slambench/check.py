@@ -1,5 +1,7 @@
 """The comparison that decides ``correct``: the program's answers against
-the plain reference's solve of the same generated graph.
+the plain reference's solve of the same generated graph.  ``worst_over_pool``
+takes any family's reference and numbers (``families/<name>.py``);
+``gaps`` is the SE(2) family's (``families/se2.py``).
 
 Numbers, each over every answer the window produced (the worst one):
 
@@ -129,19 +131,21 @@ def gaps(arrays: dict, n_poses: int, n_landmarks: int, opt: dict,
     return worst
 
 
-def worst_over_pool(problems: list, opt: dict, answers, device) -> dict:
+def worst_over_pool(family, problems: list, opt: dict, answers,
+                    device) -> dict:
     """The numbers over a run's answers ``(graph index, poses, landmarks,
-    errors)``: each pool graph's answers against the reference's solve of
-    that graph, the worst of each number over the graphs."""
+    errors)``: each pool graph's answers against the family's reference
+    solve of that graph (``families/<name>.py``), the worst of each number
+    over the graphs."""
     worst: dict = {}
     for i, problem in enumerate(problems):
         mine = [a[1:] for a in answers if a[0] == i]
         if not mine:
             continue
         g = problem["graph"]
-        ref = reference.optimize(g, opt, device)
-        got = gaps(g, problem["n_poses"], problem["n_landmarks"], opt, ref,
-                   mine, device)
+        ref = family.optimize(g, opt, device, family.REFERENCE)
+        got = family.gaps(g, problem["n_poses"], problem["n_landmarks"], opt,
+                          ref, mine, device)
         got.pop("steps", None)
         worst = {k: max(worst.get(k, -math.inf), v) for k, v in got.items()}
     return worst

@@ -81,17 +81,19 @@ def launch_bound(kernel: str, shapes: dict, active: int,
 def roofline_pct(readings, kernel: str, match) -> float | None:
     """A kernel's share of its roofline over the traced window, in %: the
     sum of its launches' least times over the sum of their device times,
-    taken from the profiler's kernel events that ``match`` picks by name.
-    None where the kernel did not run; raises where the profiler's count
-    of its events differs from the launches recorded, since the shares
-    would then not be of the same work."""
+    taken from the profiler's kernel events launched inside the window
+    (``trace.Trace.launched``) that ``match`` picks by name.  None where
+    the kernel did not run; raises where the profiler's count of its
+    events differs from the launches recorded, since the shares would then
+    not be of the same work."""
     recs = [r for r in readings.launches if r["kernel"] == kernel]
     if not recs:
         return None
     least = sum(launch_bound(kernel, r["shapes"], r["active"],
                              r["restart"])["seconds"] for r in recs)
-    device = [d for n, _, d in readings.trace.device if match(n)]
+    device = [d for n, _, d in readings.trace.launched if match(n)]
     if len(device) != len(recs):
         raise ValueError(f"{kernel}: the profiler shows {len(device)} kernel "
-                         f"events by name, {len(recs)} launches were recorded")
+                         f"events launched in the window, {len(recs)} "
+                         "launches were recorded")
     return 100.0 * least / sum(device)

@@ -1,6 +1,8 @@
 """The ``batch`` driver: ``GaussNewton.optimize`` in process, one caller
 back to back (closed loop), each call ending with the optimized poses and
-landmarks on the host.
+landmarks on the host.  The program's graph of each generated one is the
+configuration's family's (``families/<name>.py``), so that a family added
+as a file runs through this driver as it is.
 
 The graphs are laid out (host tables, band plan) once in set-up, as a
 caller who solves one map again and again would; each call solves the
@@ -18,6 +20,8 @@ What ``run.py`` asks of a driver (``drivers/<name>.py``, class
 * ``mark()``: the warm-up is over, the window starts;
 * ``traced(window, seconds, readings)``: ``window(seconds)`` run under what
   the driver traces, filling ``readings``;
+* ``after_window(traced)``: what the driver does once the window has
+  closed and the host's speed has been read, before ``close``;
 * ``end_to_end(times, window_s)``: the end-to-end metrics but ``setup_s``;
 * ``close(readings)``: frees the program's state and returns the device's
   record (``kind``, ``memory_peak_bytes``, ``launches_per_call``; after a
@@ -30,7 +34,7 @@ import time
 
 import torch
 
-from slambench import generators, stats, trace
+from slambench import cells, generators, stats, trace
 
 # the kernels, by the name of the program's launch counter
 COUNTERS = {"b1": "fused_pcg_chunk", "b2": "band_fused_pcg_chunk"}
@@ -40,7 +44,6 @@ class Driver:
     def __init__(self, cell, seed: int, device: torch.device,
                  fault: str = "none"):
         from toyslam_torch.config import OptimizerConfig
-        from toyslam_torch.models.graph import graph_from_numpy
         from toyslam_torch.optimizer import GaussNewton
 
         self.device = device
@@ -48,7 +51,8 @@ class Driver:
         self.problems = generators.pool(cell.graph, seed, cell.root)
         t.append(time.perf_counter())
         self.gn = GaussNewton(OptimizerConfig(**cell.config["optimizer"]))
-        graphs = [self.gn._prepare(graph_from_numpy(**p["graph"]))
+        program_graph = cells.family(cell).program_graph
+        graphs = [self.gn._prepare(program_graph(p["graph"]))
                   for p in self.problems]
         t.append(time.perf_counter())
         self.graphs = [g.to(device) for g in graphs]
@@ -115,6 +119,9 @@ class Driver:
         readings.trace = held.trace
         readings.launches = finish_records(records)
         return out
+
+    def after_window(self, traced: bool):
+        pass
 
     def end_to_end(self, times: list, window_s: float) -> dict:
         return stats.closed_loop("solve", times, window_s)

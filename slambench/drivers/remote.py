@@ -3,8 +3,15 @@ port's ``PyGraphServer(torch_optimize_fn(cfg, device))`` in a process of
 its own (``slambench/server.py``), one client, closed loop.  The client
 is in this process; the server is started here and stopped by
 :meth:`Driver.close`.  ``fault`` is passed to the server (the tests'
-broken answers).  A traced run has the server profile a few requests
-after the window (the mix's ``traced_requests``).
+broken answers).
+
+After the window the server profiles requests, each alone: in a traced
+run the mix's ``traced_requests`` of them (the busy share and the
+breakdown), in an untraced one a request of each graph of the pool, whose
+mean device time is the end-to-end ``device_ms.request``.  The client's
+wall time per request follows the host's speed, which drifts by more than
+a bound can hold; the traced run reports it per layer
+(``metrics/request_ms.wall.py``).
 """
 
 from __future__ import annotations
@@ -20,19 +27,19 @@ from pathlib import Path
 
 import torch
 
-from slambench import generators, stats
+from slambench import cells, generators
 
 
 class Driver:
     def __init__(self, cell, seed: int, device: torch.device,
                  fault: str = "none"):
         from toyslam_torch.io.client import GraphClient
-        from toyslam_torch.models.graph import graph_from_numpy
 
         self.cell = cell
         t0 = time.perf_counter()
         self.problems = generators.pool(cell.graph, seed, cell.root)
-        self.graphs = [graph_from_numpy(**p["graph"]) for p in self.problems]
+        program_graph = cells.family(cell).program_graph
+        self.graphs = [program_graph(p["graph"]) for p in self.problems]
         self.setup_split = {"generate_s": time.perf_counter() - t0}
         t0 = time.perf_counter()
         tmp = Path(os.environ.get("TMPDIR", "/tmp"))
@@ -56,6 +63,7 @@ class Driver:
         self.setup_split["server_start_s"] = time.perf_counter() - t0
         self.answers = []
         self.n_warm, self.n_window = 0, None
+        self.work_s = []
 
     def call(self) -> float:
         """Request the pool's next graph; the client's seconds."""
@@ -74,15 +82,29 @@ class Driver:
         """The window as it is, then the server profiles the next
         requests."""
         out = window(seconds)
+        self._profile(self.cell.traffic["traced_requests"])
+        return out
+
+    def after_window(self, traced: bool):
+        """An untraced window has closed: the server profiles one request
+        of each graph of the pool."""
+        if not traced:
+            self._profile(len(self.graphs))
+
+    def _profile(self, requests: int):
         self.n_window = len(self.answers) - self.n_warm
         self.proc.send_signal(signal.SIGUSR1)
         time.sleep(0.5)
-        for _ in range(self.cell.traffic["traced_requests"]):
+        for _ in range(requests):
             self.call()
-        return out
 
     def end_to_end(self, times: list, window_s: float) -> dict:
-        return stats.closed_loop("request", times, window_s)
+        """``device_ms.request``: the mean device time of the requests the
+        server profiled."""
+        if not self.work_s:
+            raise RuntimeError("the server profiled no request")
+        return {"device_ms.request": 1e3 * sum(self.work_s)
+                / len(self.work_s)}
 
     def close(self, readings) -> dict:
         """Stop the client and the server; the server's record, with its
@@ -104,6 +126,7 @@ class Driver:
         self.dump.unlink()
         if server.get("error"):
             raise RuntimeError(f"the server failed: {server['error']}")
+        self.work_s = server.get("work_s", [])
         timings = server["timings"]
         n = (len(self.answers) - self.n_warm if self.n_window is None
              else self.n_window)

@@ -322,6 +322,7 @@ def generate(spec: dict, seed: int, root: Path = cells.ROOT) -> dict:
     ``graphs/<kind>.py`` of ``root``."""
     spec = dict(spec)
     spec.pop("pool", None)
+    spec.pop("pool_seed", None)
     kind = spec.pop("kind")
     if "buckets" in spec:
         spec["buckets"] = tuple(spec["buckets"])
@@ -332,6 +333,15 @@ def pool(spec: dict, seed: int, root: Path = cells.ROOT) -> list:
     """The graphs one run solves in turn: ``spec["pool"]`` of them (1 where
     absent), graph ``i`` from seed ``seed * pool + i``, so that two seeds
     never share a graph and the work of a run averages over the pool's
-    noise draws."""
+    noise draws.
+
+    Where the spec names a ``pool_seed``, every run has that seed's graphs,
+    in an order its own seed draws: the same work for every seed, where a
+    metric follows each graph's work (a noise draw sets its PCG
+    iterations)."""
     k = spec.get("pool", 1)
-    return [generate(spec, seed * k + i, root) for i in range(k)]
+    if "pool_seed" not in spec:
+        return [generate(spec, seed * k + i, root) for i in range(k)]
+    order = np.random.default_rng(seed).permutation(k)
+    return [generate(spec, spec["pool_seed"] * k + int(i), root)
+            for i in order]

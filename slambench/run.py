@@ -9,10 +9,11 @@ start to the first timed call.  Then one caller calls the program back to
 back for ``--seconds`` (``--trace 0``: the end-to-end metrics) or for the
 mix's ``trace_seconds`` under the driver's tracing (``--trace 1``: the
 per-layer metrics, with the device's busy time and a breakdown).  The
-host's speed around the window is read (``host.py``).  Once the window has
-closed, the peak memory is read, the program's state freed, and every
-answer the window produced is compared with the plain reference's
-(``check.py``).
+host's speed around the window is read (``host.py``), and the driver does
+what it does once a window has closed (the remote driver: a profiled pass
+over the pool).  Then the peak memory is read, the program's state freed,
+and every answer the run produced is compared with the plain reference's,
+by the configuration's family (``families/<name>.py``, ``check.py``).
 
 The last line of standard output is the result: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
@@ -68,6 +69,7 @@ class Readings:
 
     def __init__(self):
         self.times = []            # host seconds of each window call
+        self.window_s = 0.0        # the window's host seconds
         self.counters = []         # (pcg_iters per GN iteration, iterations)
         self.trace = None          # trace.Trace of the traced window
         self.launches = []         # drivers/batch.py's launch records
@@ -106,11 +108,12 @@ def run(cell, seed: int, seconds: float, traced: bool, device,
         else:
             times, failed, window_s = _window(driver, seconds)
         host_record = host.after(start)
+        driver.after_window(traced)
     finally:
         record = driver.close(readings)
     answers, problems = driver.answers, driver.problems
     values = {**driver.end_to_end(times, window_s), "setup_s": setup_s}
-    readings.times = times
+    readings.times, readings.window_s = times, window_s
     print(json.dumps({"calls": len(times),
                       "launches_per_call": record["launches_per_call"]}),
           file=out, flush=True)
@@ -120,8 +123,8 @@ def run(cell, seed: int, seconds: float, traced: bool, device,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    numbers = check.worst_over_pool(problems, cell.config["optimizer"],
-                                    answers, device)
+    numbers = check.worst_over_pool(cells.family(cell), problems,
+                                    cell.config["optimizer"], answers, device)
     correct, compared = check.judge(numbers, cell.config["correct"])
     correct = correct and failed == 0 and len(times) > 0
 

@@ -7,10 +7,11 @@ Prints ``port N`` once it listens (after the kernels are built).  SIGUSR1
 has it profile each request that follows (a profiler per request, around
 the callback).  SIGTERM stops it; it then writes ``--dump``: the server's
 host timings per request, the kernels' launch counts, the card's name and
-peak memory, the profiled requests' readings, and the top-level names of
-any JAX module it holds.  ``--fault`` breaks the answers, for the tests
-that show the comparison fails: ``unchanged`` returns the request's graph
-as it came, ``alter`` moves one pose of the answer by a metre.
+peak memory, the profiled requests' readings (each one's device time in
+``work_s``), and the top-level names of any JAX module it holds.
+``--fault`` breaks the answers, for the tests that show the comparison
+fails: ``unchanged`` returns the request's graph as it came, ``alter``
+moves one pose of the answer by a metre.
 """
 
 from __future__ import annotations
@@ -87,6 +88,7 @@ def main(argv=None) -> int:
         record["busy_s"] = sum(t.busy_s for t in traces)
         record["window_s"] = sum(t.window_s for t in traces)
         record["breakdown"] = trace.breakdown(traces)
+        record["work_s"] = [t.work_s for t in traces]
     with open(args.dump, "w") as f:
         json.dump(record, f)
     return 0

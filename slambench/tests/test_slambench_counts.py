@@ -89,11 +89,13 @@ def _readings(n_events, n_launches):
     from slambench import run, trace
 
     r = run.Readings()
+    launched = [("fused_pcg_chunk_kernel<3>", 0.1 * i, 2e-4)
+                for i in range(n_events)] + [("elementwise", 0.9, 1e-3)]
+    # one more B1 event inside the window, launched before it: not counted
     r.trace = trace.Trace(
         window_s=1.0, busy_s=0.5,
-        device=[("fused_pcg_chunk_kernel<3>", 0.1 * i, 2e-4)
-                for i in range(n_events)] + [("elementwise", 0.9, 1e-3)],
-        host=[], gaps=[])
+        device=[("fused_pcg_chunk_kernel<3>", 0.0, 2e-4)] + launched,
+        host=[], gaps=[], launched=tuple(launched))
     r.launches = [{"kernel": "b1", "shapes": _b1_main_path(), "active": 16,
                    "restart": False}] * n_launches
     return r

@@ -54,3 +54,21 @@ def test_generate_merges_a_mix_over_a_configuration():
     b = generators.robot(5, 30, 120.0, 6.0)
     assert np.array_equal(a["graph"]["poses"], b["graph"]["poses"])
     assert a["n_poses"] == 30
+
+
+
+def _pool_poses(spec, seed):
+    return [p["graph"]["poses"].tobytes()
+            for p in generators.pool(spec, seed)]
+
+
+def test_a_pool_seed_gives_every_seed_the_same_graphs_in_its_own_order():
+    spec = {"kind": "robot", "robot_steps": 30, "fov_deg": 120.0,
+            "ray_step_deg": 6.0, "pool": 4}
+    fixed = {**spec, "pool_seed": 3}
+    a = _pool_poses(fixed, 2200000101)
+    b = _pool_poses(fixed, 2200000102)
+    # seed 3's four graphs for every run, each in an order its seed draws
+    assert sorted(a) == sorted(b) == sorted(_pool_poses(spec, 3))
+    assert a != b
+    assert not set(_pool_poses(spec, 2200000101)) & set(a)

@@ -1,7 +1,8 @@
 """The harness on the CPU: each cell's set-up and a short window through
 the kernels' plain versions, the result line's keys, a cell (with its
-configuration, graph kind, driver and metrics) added as files alone, and
-the comparison failing when the timed path is broken.
+configuration, graph kind, driver and metrics) and a family added as files
+alone, the SE(2) family judging as the reference and ``check.gaps`` do
+directly, and the comparison failing when the timed path is broken.
 
 These tests skip the harness's look for a chip (``run.run`` with a CPU
 device); the 10k configuration runs on a 2,100-pose serpentine graph, the
@@ -11,6 +12,7 @@ device); the 10k configuration runs on a 2,100-pose serpentine graph, the
 import dataclasses
 import io
 import json
+import math
 import re
 import shutil
 from pathlib import Path
@@ -18,7 +20,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from slambench import calibrate, cells, run
+from slambench import calibrate, cells, check, reference, run
 
 ROOT = Path(__file__).resolve().parents[2]
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
@@ -56,7 +58,10 @@ def test_a_run_prints_the_contracts_result(name):
     assert result["correct"] is True
     assert result["failed"] == 0 and result["attempted"] >= 1
     assert set(result["metrics"]) == {m["name"] for m in c.end_to_end}
-    assert all(v["value"] > 0 for v in result["metrics"].values())
+    # a CPU run has no device, so a metric of the device's trace reads 0
+    for m in c.end_to_end:
+        value = result["metrics"][m["name"]]["value"]
+        assert value > 0 if m["source"] == "host_clock" else value == 0
     assert set(result["compared"]) == set(c.config["correct"])
     assert result["device"]["count"] == 1
     assert set(counts) == {"calls", "launches_per_call"}
@@ -81,17 +86,45 @@ def test_a_traced_remote_run_reads_the_servers_timings():
     m = result["metrics"]
     assert m["wire_ms.request"]["value"] > 0
     assert m["server_layout_ms.request"]["value"] > 0
+    assert m["request_ms.wall"]["value"] > 0
+    assert m["request_ms_p90.wall"]["value"] > 0
+
+
+def test_an_untraced_remote_run_profiles_each_graph_once_after_it(
+        monkeypatch):
+    """The server profiles one request of each graph of the pool once the
+    window has closed; the window's server timings leave them out."""
+    c = _cell("toyslam-150.remote")
+    seen = {}
+
+    class Driver(cells.driver(c)):
+        def close(self, readings):
+            record = super().close(readings)
+            seen.update(profiled=len(self.work_s),
+                        window=len(readings.server_window),
+                        calls=len(self.answers) - self.n_warm)
+            return record
+
+    monkeypatch.setattr(cells, "driver", lambda cell: Driver)
+    _, result = _run(c)
+    assert seen["profiled"] == c.graph["pool"] == 2
+    assert seen["calls"] == seen["window"] + 2 == result["attempted"] + 2
+    assert result["metrics"]["device_ms.request"]["value"] == 0
+
+
+def _copy_benchmark(tmp_path):
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    shutil.copytree(ROOT / "slambench", tmp_path / "slambench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    return json.loads((ROOT / "slambench/configs/toyslam-150.json")
+                      .read_text())
 
 
 def test_a_cell_added_as_files_alone_is_found_by_name(tmp_path):
     """A configuration, a graph kind, a traffic mix with a driver of its
     own, an end-to-end metric and a per-layer metric added as new files
     and ``BENCHMARK.json`` entries run without an edit to any file."""
-    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
-    shutil.copytree(ROOT / "slambench", tmp_path / "slambench",
-                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    base = json.loads((ROOT / "slambench/configs/toyslam-150.json")
-                      .read_text())
+    base = _copy_benchmark(tmp_path)
     config = {**base, "name": "toyslam-40",
               "graph": {**base["graph"], "kind": "short_robot",
                         "robot_steps": 40}}
@@ -140,6 +173,147 @@ def test_a_cell_added_as_files_alone_is_found_by_name(tmp_path):
     assert result["correct"] is True
     assert result["metrics"]["iterations_run.solve"]["value"] > 0
     assert "b1_roofline" not in result["metrics"]
+
+
+# a family added as a file: the SE(2) family's parts, each call logged
+# beside the file, and its own number ``twin_gap`` (PLANT) among those
+# compared
+TWIN = """
+from pathlib import Path
+from slambench import cells
+
+se2 = cells.load("families", "se2", Path(__file__).resolve().parents[2])
+REFERENCE, CONTROL, FLOAT32 = se2.REFERENCE, se2.CONTROL, se2.FLOAT32
+PLANT = {plant}
+
+
+def _log(what):
+    with open(Path(__file__).with_suffix(".log"), "a") as f:
+        f.write(what + "\\n")
+
+
+def program_graph(arrays):
+    _log("program_graph")
+    return se2.program_graph(arrays)
+
+
+def optimize(arrays, opt, device, precision):
+    _log("optimize " + str(precision.dtype))
+    return se2.optimize(arrays, opt, device, precision)
+
+
+def gaps(*args):
+    _log("gaps")
+    return {{**se2.gaps(*args), "twin_gap": PLANT}}
+"""
+
+
+def _twin_cell(tmp_path, plant=0.0):
+    """``toyslam-40.batch``, a 40-step robot judged by ``se2_twin``, a
+    family added as a file, with ``plant`` as its own number."""
+    families = tmp_path / "slambench/families"
+    if not (tmp_path / "BENCHMARK.json").exists():
+        base = _copy_benchmark(tmp_path)
+        config = {**base, "name": "toyslam-40", "family": "se2_twin",
+                  "graph": {**base["graph"], "robot_steps": 40, "pool": 2},
+                  "correct": {**base["correct"], "twin_gap": 0.5}}
+        (tmp_path / "slambench/configs/toyslam-40.json").write_text(
+            json.dumps(config))
+        bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+        bench["configs"].append({
+            "name": "toyslam-40", "source": base["source"],
+            "file": "slambench/configs/toyslam-40.json",
+            "reduced": ["robot_steps"], "why": "a test"})
+        bench["workloads"].append({
+            "name": "toyslam-40.batch", "config": "toyslam-40",
+            "traffic": "batch", "chips": 1, "why": "a test"})
+        (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    (families / "se2_twin.py").write_text(TWIN.format(plant=plant))
+    (families / "se2_twin.log").write_text("")
+    return cells.cell("toyslam-40.batch", tmp_path)
+
+
+def _twin_log(tmp_path):
+    return (tmp_path / "slambench/families/se2_twin.log").read_text().split(
+        "\n")[:-1]
+
+
+def test_a_family_added_as_a_file_alone_judges_its_cell(tmp_path):
+    """A configuration naming a family that is a new file runs through the
+    batch driver and ``run.run`` as they are: the family builds the
+    program's graphs and solves the reference, and its own numbers decide
+    ``correct``; a fault planted in them reads not correct."""
+    c = _twin_cell(tmp_path)
+    assert c.family == "se2_twin"
+    _, result = _run(c)
+    assert result["correct"] is True
+    assert result["compared"]["twin_gap"] == {"value": 0.0, "limit": 0.5}
+    log = _twin_log(tmp_path)
+    assert log.count("program_graph") == 2          # the pool's two graphs
+    assert log.count("optimize torch.float64") == 2
+    assert log.count("gaps") == 2
+
+    _, result = _run(_twin_cell(tmp_path, plant=1.0))
+    assert result["correct"] is False
+    assert result["compared"]["twin_gap"] == {"value": 1.0, "limit": 0.5}
+    assert result["compared"]["state_gap"]["value"] <= 5e-4
+
+
+def test_calibration_reads_through_the_configurations_family(tmp_path):
+    c = _twin_cell(tmp_path)
+    rows = calibrate.readings(c, [5], torch.device("cpu"), control=True,
+                              f32=True, out=io.StringIO())
+    row = rows[0]
+    assert {"program", "control", "float32"} <= set(row)
+    assert all(row[k]["twin_gap"] == 0.0
+               for k in ("program", "control", "float32"))
+    log = _twin_log(tmp_path)
+    # the driver's pool (two graphs) and the seed's graph
+    assert log.count("program_graph") == 3
+    assert log.count("optimize torch.float64") == 1     # the reference
+    assert log.count("optimize torch.float32") == 2     # control, float32
+    assert log.count("gaps") == 3
+    # the control fails the configuration's limits, the program does not
+    assert check.judge(row["program"], c.config["correct"])[0]
+    assert not check.judge(row["control"], c.config["correct"])[0]
+
+
+def _direct_worst_over_pool(problems, opt, answers, device):
+    """The comparison as it was made before families: the SE(2) reference
+    and ``check.gaps`` called directly."""
+    worst: dict = {}
+    for i, problem in enumerate(problems):
+        mine = [a[1:] for a in answers if a[0] == i]
+        if not mine:
+            continue
+        g = problem["graph"]
+        ref = reference.optimize(g, opt, device)
+        got = check.gaps(g, problem["n_poses"], problem["n_landmarks"], opt,
+                         ref, mine, device)
+        got.pop("steps", None)
+        worst = {k: max(worst.get(k, -math.inf), v) for k, v in got.items()}
+    return worst
+
+
+@pytest.mark.parametrize("name", ["toyslam-150.batch", "sparse-10k.batch"])
+def test_the_se2_family_compares_as_the_direct_path(name):
+    """On the same answers of the program (``schur`` at 150 poses, a pool of
+    two; ``schur_grid`` at 2,100 poses), ``families/se2`` gives the same
+    numbers, value for value, as the reference and ``check.gaps`` called
+    directly."""
+    c = _cell(name)
+    assert c.family == "se2"
+    cpu = torch.device("cpu")
+    driver = cells.driver(c)(c, 11, cpu)
+    for _ in driver.graphs:
+        driver.call()
+    driver.close(run.Readings())
+    opt = c.config["optimizer"]
+    got = check.worst_over_pool(cells.family(c), driver.problems, opt,
+                                driver.answers, cpu)
+    want = _direct_worst_over_pool(driver.problems, opt, driver.answers, cpu)
+    assert got == want
+    assert set(c.config["correct"]) <= set(got)
 
 
 def test_a_launch_the_trace_cannot_see_fails_the_traced_run(monkeypatch):

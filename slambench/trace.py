@@ -6,6 +6,22 @@ copies, sets) inside the traced window, so that work on overlapping
 streams counts once.  An idle gap is named by the innermost host op that
 was running at its middle, or as Python between torch ops where none
 was.
+
+The kernels of the window's own work (``Trace.launched``, what the
+roofline readers take) are chosen by the launch that issued them, not by
+their timestamps: each device activity whose correlation id is that of a
+host-side launch call (a CUDA runtime or driver event ``cu*Launch*``:
+``cudaLaunchKernel``, ``cudaLaunchKernelExC`` for a cluster,
+``cudaLaunchCooperativeKernel``, ``cuLaunchKernel``...) that started inside
+the window.  The device's clock drifts against the host's by some
+per cent of a window, so a kernel launched near the window's end can be
+stamped past it.
+
+The work's device time (``Trace.work_s``) is the union of every device
+activity's interval in the profile, none clipped to the window: where a
+profile holds one piece of work and nothing else (the remote cell's
+server profiles one request at a time, each ending with its answer on
+the host), that is the device time of that work.
 """
 
 from __future__ import annotations
@@ -25,6 +41,9 @@ class Trace(NamedTuple):
     device: list        # (name, start_s, seconds) per device activity
     host: list          # (name, start_s, seconds) per host op
     gaps: list          # (start_s, seconds) idle gaps inside the window
+    launched: tuple = ()    # (name, start_s, seconds) per device activity
+                            # launched inside the window
+    work_s: float = 0.0     # union of every device activity, unclipped
 
 
 @contextlib.contextmanager
@@ -37,22 +56,30 @@ def profiled(device: torch.device):
     with torch.profiler.profile(activities=acts) as prof:
         with torch.profiler.record_function(WINDOW_SPAN):
             yield holder
-    holder.trace = read(prof)
+    holder.trace = read(_events(prof))
 
 
 def _events(prof):
-    """``(name, start_ns, duration_ns, on_device)`` of every event."""
+    """``(name, start_ns, duration_ns, on_device, correlation_id)`` of
+    every event."""
     out = []
     for e in prof.profiler.kineto_results.events():
         on_dev = e.device_type() != torch.autograd.DeviceType.CPU
         if on_dev and (e.is_user_annotation() or e.name() == WINDOW_SPAN):
             continue        # a host span mirrored on the device's timeline
-        out.append((e.name(), e.start_ns(), e.duration_ns(), on_dev))
+        out.append((e.name(), e.start_ns(), e.duration_ns(), on_dev,
+                    e.correlation_id()))
     return out
 
 
-def read(prof) -> Trace:
-    events = _events(prof)
+def is_launch(name: str) -> bool:
+    """Whether a host event is a CUDA runtime or driver call that launches
+    work on the device."""
+    return name.startswith("cu") and "Launch" in name
+
+
+def read(events) -> Trace:
+    """The readings of ``_events``' list of one profile."""
     window = [e for e in events if e[0] == WINDOW_SPAN and not e[3]]
     if not window:
         raise RuntimeError("the traced window's span is missing")
@@ -61,9 +88,18 @@ def read(prof) -> Trace:
     dev = sorted((e for e in events if e[3] and e[1] < w1
                   and e[1] + e[2] > w0), key=lambda e: e[1])
     host = [e for e in events if not e[3] and e[0] != WINDOW_SPAN]
+    ids = {e[4] for e in host if w0 <= e[1] < w1 and is_launch(e[0])}
+    launched = sorted((e for e in events if e[3] and e[4] in ids),
+                      key=lambda e: e[1])
+    work, end = 0, float("-inf")
+    for _, s, d, _, _ in sorted((e for e in events if e[3]),
+                                key=lambda e: e[1]):
+        if s + d > end:
+            work += s + d - max(s, end)
+            end = s + d
     busy, gaps = 0, []
     cursor = w0
-    for _, s, d, _ in dev:
+    for _, s, d, _, _ in dev:
         s, t = max(s, w0), min(s + d, w1)
         if s > cursor:
             gaps.append(((cursor - w0) * 1e-9, (s - cursor) * 1e-9))
@@ -74,9 +110,12 @@ def read(prof) -> Trace:
         gaps.append(((cursor - w0) * 1e-9, (w1 - cursor) * 1e-9))
     return Trace(
         window_s=wd * 1e-9, busy_s=busy * 1e-9,
-        device=[(n, (s - w0) * 1e-9, d * 1e-9) for n, s, d, _ in dev],
-        host=[(n, (s - w0) * 1e-9, d * 1e-9) for n, s, d, _ in host],
-        gaps=gaps)
+        device=[(n, (s - w0) * 1e-9, d * 1e-9) for n, s, d, *_ in dev],
+        host=[(n, (s - w0) * 1e-9, d * 1e-9) for n, s, d, *_ in host],
+        gaps=gaps,
+        launched=tuple((n, (s - w0) * 1e-9, d * 1e-9)
+                       for n, s, d, *_ in launched),
+        work_s=work * 1e-9)
 
 
 def breakdown(traces, top: int = 10) -> dict:
