@@ -26,10 +26,11 @@ import pytest
 import torch
 
 from slambench import cells, run, spans, trace
+from toyslam_torch import tracing
 from toyslam_torch.config import OptimizerConfig, SimConfig, SlamConfig
 from toyslam_torch.ops import fused_pcg as fp
 from toyslam_torch.optimizer import GaussNewton
-from toyslam_torch.sim import frontend, synthetic
+from toyslam_torch.sim import frontend, synthetic, synthetic3d
 
 CPU = torch.device("cpu")
 ROBOT = dict(iterations=4, lr=0.2, solver="schur", pcg_precond="tridiag",
@@ -39,16 +40,27 @@ GRID = dict(iterations=4, lr=1.0, solver="schur_grid",
             exact_odom_jacobians=True, pcg_tol=1e-2, pcg_max_iters=15,
             pcg_restart_every=15, pcg_precond="tridiag+coarse",
             pcg_coarse_group=32, pcg_precond_refresh=2, pcg_fused_chunk=15)
+# the SE(3) configuration's solver (slambench/configs/ba3d-512x4096.json)
+BA = dict(iterations=4, lr=1.0, solver="schur3d", exact_odom_jacobians=True,
+          huber_delta=4.0, pcg_tol=1e-6, pcg_max_iters=200,
+          convergence_eps=1e-8, reject_worse_steps=True,
+          pcg_precond="tridiag", pcg_fused_chunk=16)
 CASES = {
     "schur": (ROBOT, "robot"),
     "schur-refresh": ({**ROBOT, "pcg_precond_refresh": 2}, "robot"),
     "schur-plain": ({**ROBOT, "pcg_backend": "xla"}, "robot"),
     "schur_grid": (GRID, "grid"),
+    "schur3d": (BA, "ba"),
 }
-# the harness tests' small sizes (slambench/tests/test_slambench_harness.py)
+# the harness tests' small sizes (slambench/tests/test_slambench_harness.py),
+# the SE(3) one at 16 cameras x 64 points
 SMALL = {"sparse-10k": {"num_poses": 2100, "num_landmarks": 2100},
-         "toyslam-150": {"pool": 2}}
-BATCH = ["toyslam-150.batch", "sparse-10k.batch", "sparse-10k.revisit"]
+         "toyslam-150": {"pool": 2},
+         "ba3d-512x4096": {"num_poses": 16, "num_landmarks": 64, "pool": 2}}
+BATCH = ["toyslam-150.batch", "sparse-10k.batch", "sparse-10k.revisit",
+         "ba3d-512x4096.batch"]
+# what a cell reads besides the three phases
+OWN = {"ba3d-512x4096.batch": "edges3d_ms.solve"}
 PHASES = ["ops.assemble", "ops.eliminate", "ops.pcg", "ops.backsub",
           "gn.update"]
 
@@ -63,6 +75,8 @@ def _graph(kind):
     if kind == "robot":
         sim = frontend.simulate(SimConfig(robot_steps=40))
         return frontend.build_graph(sim, SlamConfig())[0]
+    if kind == "ba":
+        return synthetic3d.make_ba_problem(16, 64, 24, seed=0)[0]
     if kind == "grid":
         return synthetic.make_large_problem(
             num_poses=300, num_landmarks=300, obs_per_pose=5, seed=2,
@@ -254,8 +268,31 @@ def test_a_traced_batch_run_reports_the_host_phases(monkeypatch, name):
     result = json.loads(out.getvalue().strip().splitlines()[-1])
     assert result["correct"] is True
     metrics = result["metrics"]
-    for metric in ("assemble_ms.solve", "precond_ms.solve", "pcg_ms.solve"):
+    for metric in ("assemble_ms.solve", "precond_ms.solve", "pcg_ms.solve",
+                   *OWN.get(name, "").split()):
         assert metrics[metric]["value"] > 0
         assert metrics[metric]["unit"] == "ms"
+    assert set(OWN.values()) & set(metrics) == set(OWN.get(name, "").split())
     assert "host_syncs_per_gn.solve" not in metrics
     assert "idle_unattributed_pct.solve" not in metrics
+
+
+def test_se3_spans():
+    """An SE(3) solve records its assembly as ``ops.assemble``, and the
+    edges inside it and inside each step rejection's chi^2 as
+    ``ops.edges3d``; with no profiler the span is the shared null
+    context."""
+    assert tracing.span("toyslam.ops.edges3d") is tracing._NULL
+    gn = GaussNewton(OptimizerConfig(**BA))
+    laid = gn._prepare(_graph("ba"))
+    with trace.profiled(CPU) as held:
+        res = gn.optimize(laid)
+    all_spans = spans.program_spans(held.trace)
+    n = res.iterations_run
+    for parent in ("toyslam.ops.assemble", "toyslam.gn.update"):
+        outer = [x for x in all_spans if x[0] == parent]
+        assert len(outer) == n
+        for x in outer:
+            assert [_short(c[0]) for c in _children(x, all_spans)] == [
+                "ops.edges3d"]
+    assert sum(x[0] == "toyslam.ops.edges3d" for x in all_spans) == 2 * n

@@ -11,7 +11,8 @@ runs on both graphs:
   measurements and 6x6 information;
 * ``lm_edges``  pinhole reprojection observations: pose ``pose`` sees
   landmark ``lm`` at pixel ``meas`` (u, v) with 2x2 information; the
-  camera intrinsics (fx, fy, cx, cy) are ``f32[4]`` on the graph.
+  camera intrinsics (fx, fy, cx, cy) are ``f32[4]`` on the graph, or
+  ``f32[5]`` with a near plane (``ops/residuals3d.py``).
 
 Pose blocks are 6-dof (dt, omega), landmark blocks 3-dof.  Values are
 float32 and indices int64 tensors.  :class:`GraphBuilder3D` pads exactly
@@ -70,7 +71,7 @@ class FactorGraph3D(TensorTree):
     lm_fixed: torch.Tensor     # f32[M]
     odom: Odom3DEdges
     lm_edges: ReprojEdges
-    intrinsics: torch.Tensor   # f32[4] (fx, fy, cx, cy)
+    intrinsics: torch.Tensor   # f32[4] (fx, fy, cx, cy) or f32[5] (+ near)
     # ops.gather_plan.GatherPlan once attached (ops.gather_plan.attach_plan)
     plan: object = None
 

@@ -12,7 +12,13 @@ rotation), as in ``toyslam_tpu.ops.residuals3d``:
   ``torch.func.vmap``, as the reference does with ``jax.jacfwd``;
 * reprojection edge: pinhole projection of a world landmark into the
   camera at the pose (pose = camera-to-world), analytic 2x6 / 2x3
-  Jacobians.
+  Jacobians.  The depth is clamped at the camera's near plane: 1e-6, as
+  in the reference, or a fifth intrinsic (fx, fy, cx, cy, near) where the
+  graph gives one.  Below a given near plane the projection does not
+  move with the depth, and its Jacobian has no depth column.  In float32
+  a point at or behind a camera's plane makes normal equations the card
+  cannot hold (entries up to ~1e21 at a depth of 1e-6, overflowing the
+  3x3 inverses); a near plane bounds them.
 """
 
 from __future__ import annotations
@@ -61,10 +67,16 @@ def eval_odom3d_edges(
     return EdgeEval(r, JA, JB, chi2, w * mask, robust_err * mask)
 
 
+def near_plane(intrinsics: torch.Tensor):
+    """The depth a projection is clamped at: the fifth intrinsic where the
+    graph gives one, else 1e-6."""
+    return intrinsics[4] if intrinsics.shape[-1] > 4 else 1e-6
+
+
 def project(intrinsics: torch.Tensor, x_cam: torch.Tensor) -> torch.Tensor:
     """Pinhole projection of camera-frame points ``[..., 3] -> [..., 2]``."""
     fx, fy, cx, cy = intrinsics[0], intrinsics[1], intrinsics[2], intrinsics[3]
-    z = torch.clamp(x_cam[..., 2], min=1e-6)
+    z = torch.clamp(x_cam[..., 2], min=near_plane(intrinsics))
     return torch.stack([fx * x_cam[..., 0] / z + cx,
                         fy * x_cam[..., 1] / z + cy], dim=-1)
 
@@ -93,13 +105,16 @@ def eval_reproj_edges(
     r = project(intrinsics, x_c) - meas
 
     fx, fy = intrinsics[0], intrinsics[1]
-    inv_z = 1.0 / torch.clamp(x_c[..., 2], min=1e-6)
+    near = near_plane(intrinsics)
+    inv_z = 1.0 / torch.clamp(x_c[..., 2], min=near)
     x_z = x_c[..., 0] * inv_z
     y_z = x_c[..., 1] * inv_z
     zeros = torch.zeros_like(inv_z)
+    # the depth column, none below a given near plane
+    dz = inv_z if intrinsics.shape[-1] == 4 else inv_z * (x_c[..., 2] > near)
     jp = torch.stack([
-        torch.stack([fx * inv_z, zeros, -fx * x_z * inv_z], dim=-1),
-        torch.stack([zeros, fy * inv_z, -fy * y_z * inv_z], dim=-1),
+        torch.stack([fx * inv_z, zeros, -fx * x_z * dz], dim=-1),
+        torch.stack([zeros, fy * inv_z, -fy * y_z * dz], dim=-1),
     ], dim=-2)                                   # J_proj [E, 2, 3]
     JA = torch.cat([bm.mm(jp, -Rt), bm.mm(jp, se3.hat(x_c))], dim=-1)
     JB = bm.mm(jp, Rt)

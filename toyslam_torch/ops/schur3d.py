@@ -9,7 +9,10 @@ sizes off the arrays, so the SE(2) solve machinery runs unchanged on the
 6/3 systems built here, with the kernels instantiated at dp=6.
 
 Port of ``toyslam_tpu.ops.schur3d``.  The per-vertex sums go through the
-graph's gather tables, as ``schur.assemble_blocks`` does.  Where the gate
+graph's gather tables, as ``schur.assemble_blocks`` does.  Spans: the
+solve's assembly is ``toyslam.ops.assemble``, and the edges' residuals and
+Jacobians inside it, and the residuals of :func:`total_error_3d` (the step
+rejection's chi^2), are ``toyslam.ops.edges3d``.  Where the gate
 declines the kernels (``pcg_backend="xla"``, loop closures in an SE(3)
 graph, layouts past the budgets) the solve takes the plain PCG loop of
 ``schur.schur_solve`` at dp=6, dl=3, as the reference does.  The
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from toyslam_torch import tracing
 from toyslam_torch.config import OptimizerConfig
 from toyslam_torch.models.graph3d import FactorGraph3D
 from toyslam_torch.ops import blockmath as bm
@@ -47,16 +51,17 @@ def assemble_blocks_3d(
     plan = _plan(graph)
     t_oi, t_oj = plan.odom_by_i, plan.odom_by_j
     t_lp, t_ll = plan.lm_by_pose, plan.lm_by_lm
-    od = res3.eval_odom3d_edges(
-        graph.poses, graph.odom.i, graph.odom.j, graph.odom.meas,
-        graph.odom.info, graph.odom.mask, huber_delta,
-        exact=exact_odom_jacobians,
-    )
-    rb = eb3.reproj_edge_blocks(
-        graph.poses, graph.landmarks, graph.intrinsics, graph.lm_edges.pose,
-        graph.lm_edges.lm, graph.lm_edges.meas, graph.lm_edges.info,
-        graph.lm_edges.mask, huber_delta,
-    )
+    with tracing.span("toyslam.ops.edges3d"):
+        od = res3.eval_odom3d_edges(
+            graph.poses, graph.odom.i, graph.odom.j, graph.odom.meas,
+            graph.odom.info, graph.odom.mask, huber_delta,
+            exact=exact_odom_jacobians,
+        )
+        rb = eb3.reproj_edge_blocks(
+            graph.poses, graph.landmarks, graph.intrinsics,
+            graph.lm_edges.pose, graph.lm_edges.lm, graph.lm_edges.meas,
+            graph.lm_edges.info, graph.lm_edges.mask, huber_delta,
+        )
 
     # relative-pose contributions
     w_od = od.w[:, None, None] * graph.odom.info        # [E1, 6, 6]
@@ -100,15 +105,16 @@ def total_error_3d(
     the ``error_fn`` of the Levenberg-Marquardt step rejection.  The
     Jacobians are not needed, so the odometry residuals skip them whatever
     ``exact_odom_jacobians`` says, as in the reference."""
-    od = res3.eval_odom3d_edges(
-        graph.poses, graph.odom.i, graph.odom.j, graph.odom.meas,
-        graph.odom.info, graph.odom.mask, huber_delta, exact=False,
-    )
-    rp = res3.eval_reproj_edges(
-        graph.poses, graph.landmarks, graph.intrinsics, graph.lm_edges.pose,
-        graph.lm_edges.lm, graph.lm_edges.meas, graph.lm_edges.info,
-        graph.lm_edges.mask, huber_delta,
-    )
+    with tracing.span("toyslam.ops.edges3d"):
+        od = res3.eval_odom3d_edges(
+            graph.poses, graph.odom.i, graph.odom.j, graph.odom.meas,
+            graph.odom.info, graph.odom.mask, huber_delta, exact=False,
+        )
+        rp = res3.eval_reproj_edges(
+            graph.poses, graph.landmarks, graph.intrinsics,
+            graph.lm_edges.pose, graph.lm_edges.lm, graph.lm_edges.meas,
+            graph.lm_edges.info, graph.lm_edges.mask, huber_delta,
+        )
     return od.robust_err.sum() + rp.robust_err.sum()
 
 
@@ -125,10 +131,12 @@ def schur3d_linearize_solve(cfg: OptimizerConfig, group=None):
 
     def solve(graph: FactorGraph3D, lam: torch.Tensor):
         mode = fp.gated_mode(cfg, graph, group)
-        sys = assemble_blocks_3d(
-            graph, huber_delta=cfg.huber_delta, fixed_prior=cfg.fixed_prior,
-            exact_odom_jacobians=cfg.exact_odom_jacobians, group=group,
-        )
+        with tracing.span("toyslam.ops.assemble"):
+            sys = assemble_blocks_3d(
+                graph, huber_delta=cfg.huber_delta,
+                fixed_prior=cfg.fixed_prior,
+                exact_odom_jacobians=cfg.exact_odom_jacobians, group=group,
+            )
         if mode is not None:
             dx_p, dx_l, stats = fp.fused_schur_solve(
                 sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters,
