@@ -146,8 +146,9 @@ Run from the root of a checkout.  Phases, each of which must pass:
 26. ``dist_partition3d``: the partitioned SE(3) solve at 4 ranks on
    ``make_ba_problem(48, 160, 16, seed=1)`` (``DIST3D_*``): chi^2 within
    1e-4 and dx within 5e-2 of max|dx| of the single-device plain loop in
-   float32, within 1e-8 in float64, and the float64 GN below 0.3 of the
-   initial ATE;
+   float32 on the card, within 1e-8 in float64, and the float64 GN below
+   0.3 of the initial ATE, both on the CPU (the SE(3) edges' kernels take
+   float32 alone);
 27. ``dist_scale``: the partitioned path at full width, the 2048-pose
    workload of SCALING.json (``DIST_SCALE_*``), at 4 ranks, held to the
    single-device plain loop and to the JAX package's partitioned run
@@ -211,10 +212,25 @@ Run from the root of a checkout.  Phases, each of which must pass:
    paths' three timed, device ms (CUDA events, launches queued behind a
    sleeping kernel) and host ms, against the plain version's float32 build
    on the card and the bound (line ``pcr_factor``).
+33. ``edges3d``: the SE(3) edges' kernels (``ops/edges3d_kernel.py``) on
+   the ba512 rows' graph, with four intrinsics and with the benchmark
+   configuration's near plane, at the start and off it: the per-edge
+   blocks (the relative-pose edges' with the exact Jacobians and with
+   ``A = -I, B = I``) within 1e-5 of the float64 plain version's largest
+   entry, the
+   relative-pose Jacobians within 1e-5 of each edge's largest against
+   ``jacfwd``, the summed robust chi^2 within 1.5e-7, the same bits on a
+   rerun, two launches an assembly and a chi^2 (line ``edges3d_check``);
+   each launch timed (device ms) against its bound and the plain version's
+   float32 evaluation on the card, the registers and local memory of each
+   instantiation (line ``edges3d``).
 Every path that builds a tridiagonal preconditioner on the card, the plain
 PCG loop and the sharded ranks included, builds it with the PCR kernel,
 one launch a build: the paths' checks count those launches apart from the
-PCG kernels' (``solve_launches``, ``pcr_builds``).
+PCG kernels' (``solve_launches``, ``pcr_builds``).  Every SE(3) solve on
+the card evaluates its edges with the edges3d kernels, two launches an
+assembly and two a chi^2 of the step rejection: the BA paths (phases 10,
+12 and 14) hold them to that (``edges3d_launches``).
 Each of phases 24-27 prints a ``dist_timing`` line (GN-iter/s at 4 and 1
 ranks beside the single-device plain loop, ms per collective) with the
 card's name and power limit: ranks that share one card take turns on it,
@@ -284,6 +300,14 @@ KERNELS = {
         "route": "cuda",
         "source": "toyslam_torch/csrc/pcr_factor.cu",
         "replaces": "none: toyslam_torch/ops/schur.py::build_tridiag_planes_ref",
+    },
+    "edges3d": {
+        "name": "edges3d",
+        "route": "cuda",
+        "source": "toyslam_torch/csrc/edges3d.cu",
+        "replaces": "none: toyslam_torch/ops/residuals3d.py, "
+                    "edge_blocks3d.py (eval_odom3d_edges, odom3d_edge_blocks,"
+                    " reproj_edge_blocks, eval_reproj_edges)",
     },
 }
 REL_TOL = 1e-4
@@ -537,6 +561,7 @@ def chunk_fns(kernel, schedule=None):
 
 def reset_counts():
     from toyslam_torch.ops import band_matvec as bmv
+    from toyslam_torch.ops import edges3d_kernel as k3
     from toyslam_torch.ops import fused_pcg as fp
     from toyslam_torch.ops import pcr
 
@@ -545,25 +570,38 @@ def reset_counts():
     fp.band_fused_pcg_chunk.launches = 0
     bmv.slab_band_matvec.launches = 0
     pcr.pcr_factor.launches = 0
+    k3.launches = 0
 
 
 def read_counts():
     from toyslam_torch.ops import band_matvec as bmv
+    from toyslam_torch.ops import edges3d_kernel as k3
     from toyslam_torch.ops import fused_pcg as fp
     from toyslam_torch.ops import pcr
 
     return {"fused_pcg_chunk": fp.fused_pcg_chunk.launches,
             "band_fused_pcg_chunk": fp.band_fused_pcg_chunk.launches,
             "slab_band_matvec": bmv.slab_band_matvec.launches,
-            "pcr_factor": pcr.pcr_factor.launches}
+            "pcr_factor": pcr.pcr_factor.launches,
+            "edges3d": k3.launches}
 
 
 def solve_launches(counts):
-    """The launches of :func:`read_counts` but the PCR build's: the PCG
-    kernels and B3.  The plain PCG loop, the dense solver and the sharded
-    ranks make none of them; every solve that builds a tridiagonal
-    preconditioner on the card launches the PCR kernel (``pcr_factor``)."""
-    return sum(v for k, v in counts.items() if k != "pcr_factor")
+    """The launches of :func:`read_counts` but the PCR build's and the SE(3)
+    edges': the PCG kernels and B3.  The plain PCG loop, the dense solver
+    and the sharded ranks make none of them; every solve that builds a
+    tridiagonal preconditioner on the card launches the PCR kernel
+    (``pcr_factor``), every SE(3) solve there the edges' kernels
+    (``edges3d``, :func:`edges3d_launches`)."""
+    return sum(v for k, v in counts.items()
+               if k not in ("pcr_factor", "edges3d"))
+
+
+def edges3d_launches(cfg, iterations_run):
+    """The SE(3) edges' launches of one optimize() on the card: two an
+    assembly (one a GN iteration) and two a chi^2 of the step rejection
+    (one a GN iteration where it rejects worse steps)."""
+    return iterations_run * (2 + 2 * cfg.reject_worse_steps)
 
 
 def pcr_builds(cfg, iterations_run):
@@ -1806,6 +1844,8 @@ def ba_optimize(case, device, **change):
     checks = {
         "kernel": (b1 > 0 and b2 == 0) if mode == "resident"
         else (b2 > 0 and b1 == 0) if mode == "band" else b1 == b2 == 0,
+        "edges3d: 2 an assembly, 2 a chi^2":
+            launches["edges3d"] == edges3d_launches(gn.config, it),
         "finite": m["finite"],
         "chi2_first": math.isclose(errors[0], ref["chi2"][0], rel_tol=1e-4),
         # LM with step rejection: chi^2 never rises
@@ -1853,6 +1893,9 @@ def phase_ba_path(device):
         "device": cli["device"] == "cuda",
         "B1 only": launches["fused_pcg_chunk"] == cli["kernel_launches"] > 0
         and launches["band_fused_pcg_chunk"] == 0,
+        # the CLI's schedule rejects worse steps
+        "edges3d: 2 an assembly, 2 a chi^2":
+            launches["edges3d"] == 4 * cli["iterations_run"],
         "U in shared memory": cli["resident_u_in_smem"],
         "chi2_first": math.isclose(cli["chi2_first"], ref["chi2"][0],
                                    rel_tol=1e-4),
@@ -2477,7 +2520,8 @@ def phase_serve(device):
                 all(r["kernel_launches"] == {"fused_pcg_chunk": 25,
                                              "band_fused_pcg_chunk": 0,
                                              "slab_band_matvec": 0,
-                                             "pcr_factor": builds150}
+                                             "pcr_factor": builds150,
+                                             "edges3d": 0}
                     for r in rows[:3]),
             "2000-pose request through B1":
                 rows[3]["kernel_launches"]["fused_pcg_chunk"] > 0
@@ -3291,8 +3335,9 @@ def phase_dist(device, solve, smi, state):
 
 
 def _dist3d_rank(mesh, graph):
-    """One rank of phase 26: the f32 solve, the float64 pin and the float64
-    GN, partitioned."""
+    """One rank of phase 26: the f32 solve, partitioned, on the card (and
+    its launches); on the CPU (``mesh.device``) the float64 pin and the
+    float64 GN instead: the SE(3) edges' kernels take float32 alone."""
     import torch
 
     from toyslam_torch.config import OptimizerConfig
@@ -3306,35 +3351,37 @@ def _dist3d_rank(mesh, graph):
     reset_counts()
     all_reduce.calls = 0
     out = {}
-    for name, kw, dt in (("f32", DIST3D_CFG, torch.float32),
-                         ("f64", DIST3D_F64, torch.float64)):
-        solve = partitioned_linearize_solve(OptimizerConfig(**kw), mesh)
-        g = solve.prepare(graph.astype(dt))
-        dxp, _, err, st = solve(g, torch.tensor(1e-3, dtype=dt,
-                                                device=mesh.device))
-        out[name] = {"dxp": dxp.cpu().numpy(), "err": float(err),
-                     "pcg_iters": int(st.pcg_iters)}
-    cfg = OptimizerConfig(**DIST3D_GN)
-    solve = partitioned_linearize_solve(cfg, mesh)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = GaussNewton(cfg, solve=solve).optimize(graph.astype(torch.float64))
-    poses, _ = gather_result(res, solve.meta, mesh)
-    torch.cuda.synchronize()
-    it = res.iterations_run
-    out["gn"] = {"poses": poses.cpu().numpy(), "iterations_run": it,
-                 "chi2": res.errors[:it].tolist(),
-                 "seconds": time.perf_counter() - t0}
+    on_card = mesh.device.type == "cuda"
+    name, kw, dt = (("f32", DIST3D_CFG, torch.float32) if on_card
+                    else ("f64", DIST3D_F64, torch.float64))
+    solve = partitioned_linearize_solve(OptimizerConfig(**kw), mesh)
+    g = solve.prepare(graph.astype(dt))
+    dxp, _, err, st = solve(g, torch.tensor(1e-3, dtype=dt,
+                                            device=mesh.device))
+    out[name] = {"dxp": dxp.cpu().numpy(), "err": float(err),
+                 "pcg_iters": int(st.pcg_iters)}
+    if not on_card:
+        cfg = OptimizerConfig(**DIST3D_GN)
+        solve = partitioned_linearize_solve(cfg, mesh)
+        t0 = time.perf_counter()
+        res = GaussNewton(cfg, solve=solve).optimize(
+            graph.astype(torch.float64))
+        poses, _ = gather_result(res, solve.meta, mesh)
+        it = res.iterations_run
+        out["gn"] = {"poses": poses.numpy(), "iterations_run": it,
+                     "chi2": res.errors[:it].tolist(),
+                     "seconds": time.perf_counter() - t0}
     out["launches"] = read_counts()
     out["collectives"] = all_reduce.calls
     return out
 
 
 def phase_dist_partition3d(device, smi):
-    """Phase 26: the partitioned SE(3) solve at 4 ranks on cuda:0 against
-    the single-device plain loop: chi^2 within 1e-4, dx within 5e-2 of
-    max|dx| in float32 and within 1e-8 in float64, and the float64 GN below
-    0.3 of the initial ATE."""
+    """Phase 26: the partitioned SE(3) solve at 4 ranks against the
+    single-device plain loop: chi^2 within 1e-4 and dx within 5e-2 of
+    max|dx| in float32 on cuda:0; dx within 1e-8 in float64 and the
+    float64 GN below 0.3 of the initial ATE on the CPU (the SE(3) edges'
+    kernels take float32 alone and refuse float64 on the card)."""
     import numpy as np
     import torch
 
@@ -3347,39 +3394,41 @@ def phase_dist_partition3d(device, smi):
     graph, gt, _ = synthetic3d.make_ba_problem(**DIST3D_GRAPH)
     n = DIST3D_GRAPH["num_poses"]
     single = {}
-    for name, kw, dt in (("f32", DIST3D_CFG, torch.float32),
-                         ("f64", DIST3D_F64, torch.float64)):
+    for name, kw, dt, dev in (("f32", DIST3D_CFG, torch.float32, device),
+                              ("f64", DIST3D_F64, torch.float64, "cpu")):
         cfg = OptimizerConfig(**kw)
-        g = GaussNewton(cfg)._prepare(graph).astype(dt).to(device)
+        g = GaussNewton(cfg)._prepare(graph).astype(dt).to(dev)
         dxp, _, err, _ = schur3d_linearize_solve(cfg)(
-            g, torch.tensor(1e-3, dtype=dt, device=device))
+            g, torch.tensor(1e-3, dtype=dt, device=dev))
         single[name] = (dxp.cpu().numpy()[:n], float(err))
     gn = GaussNewton(OptimizerConfig(**DIST3D_GN))
-    g64 = gn._prepare(graph).astype(torch.float64).to(device)
-    torch.cuda.synchronize()
+    g64 = gn._prepare(graph).astype(torch.float64)
     t0 = time.perf_counter()
     single_gn = gn.optimize(g64)
-    torch.cuda.synchronize()
     single_rate = single_gn.iterations_run / (time.perf_counter() - t0)
     t0 = time.perf_counter()
     ranks = run_ranks(_dist3d_rank, 4, "cuda", (graph,))
     wall = time.perf_counter() - t0
-    m = {"ranks": 4, "backend": "gloo", "run_ranks_s": wall}
-    for name in ("f32", "f64"):
-        dxp = np.concatenate([r[name]["dxp"] for r in ranks])[:n]
+    t0 = time.perf_counter()
+    ranks64 = run_ranks(_dist3d_rank, 4, "cpu", (graph,))
+    m = {"ranks": 4, "backend": "gloo", "run_ranks_s": wall,
+         "run_ranks_cpu_s": time.perf_counter() - t0}
+    for name, rs in (("f32", ranks), ("f64", ranks64)):
+        dxp = np.concatenate([r[name]["dxp"] for r in rs])[:n]
         ref, err = single[name]
         m[name] = {"rel_dev": float(np.abs(dxp - ref).max()
                                     / np.abs(ref).max()),
-                   "err": ranks[0][name]["err"], "err_single": err,
-                   "pcg_iters": ranks[0][name]["pcg_iters"]}
+                   "err": rs[0][name]["err"], "err_single": err,
+                   "pcg_iters": rs[0][name]["pcg_iters"]}
     ate0 = synthetic3d.pose_ate_rmse(graph.poses.numpy()[:n], gt)
-    gn = ranks[0]["gn"]
+    gn = ranks64[0]["gn"]
     m["gn"] = {"ate_initial": ate0,
                "ate_final": synthetic3d.pose_ate_rmse(gn["poses"][:n], gt),
                "chi2": gn["chi2"], "seconds": gn["seconds"],
                "gn_iter_per_s": gn["iterations_run"] / gn["seconds"]}
     m["launches"] = [r["launches"] for r in ranks]
-    m["collectives"] = ranks[0]["collectives"]
+    m["collectives"] = {"f32": ranks[0]["collectives"],
+                        "f64_and_gn": ranks64[0]["collectives"]}
     checks = {
         "err f32": abs(m["f32"]["err"] - m["f32"]["err_single"])
         < 1e-4 * m["f32"]["err_single"],
@@ -3387,16 +3436,24 @@ def phase_dist_partition3d(device, smi):
         "dx f64": m["f64"]["rel_dev"] < 1e-8,
         "ate": m["gn"]["ate_final"] < 0.3 * ate0,
         "same trajectory on every rank": all(
-            np.array_equal(r["gn"]["poses"], gn["poses"]) for r in ranks),
-        "no launch in any rank": all(sum(k.values()) == 0
-                                     for k in m["launches"]),
+            np.array_equal(r["gn"]["poses"], gn["poses"]) for r in ranks64),
+        # no PCG, B3 or PCR kernel; each rank's float32 solve assembles
+        # its edges once, through the SE(3) edges' kernels (two launches);
+        # the float64 ranks run on the CPU and launch nothing
+        "no launch in any rank": all(
+            solve_launches(k) == 0 and k["pcr_factor"] == 0
+            for k in m["launches"]),
+        "no launch in any CPU rank": all(
+            not any(r["launches"].values()) for r in ranks64),
+        "edges3d: 2 in each rank's float32 assembly": all(
+            k["edges3d"] == 2 for k in m["launches"]),
     }
     log("dist_partition3d " + json.dumps(m))
     failed_checks("dist partition3d", checks)
     log("dist_timing " + json.dumps({
         "mode": "partition3d", "card": smi, "note": DIST_NOTE,
-        "gn_iter_per_s": {"ranks_4_f64": m["gn"]["gn_iter_per_s"],
-                          "single_plain_f64": single_rate}}))
+        "gn_iter_per_s": {"ranks_4_f64_cpu": m["gn"]["gn_iter_per_s"],
+                          "single_plain_f64_cpu": single_rate}}))
     return m
 
 
@@ -4058,6 +4115,237 @@ def phase_pcr_factor(device, state):
     return out
 
 
+# SE(3) edges: the largest error of the kernel's per-edge blocks over the
+# largest entry of the float64 plain version's (each tensor), of its
+# Jacobians per edge, and of the summed robust chi^2
+EDGES3D_REL_TOL = {"blocks": 1e-5, "jacobians": 1e-5, "chi2": 1.5e-7}
+# floating-point operations an edge, counted from csrc/edges3d.cu's
+# arithmetic: the relative-pose residual, its 12 forward-mode directions
+# and blocks / the residual alone; the reprojection with blocks / alone
+EDGES3D_FLOPS = {"odom_blocks": 3500, "odom_residuals": 250,
+                 "reproj_blocks": 400, "reproj_residuals": 45}
+
+
+def edges3d_graph(device, near=None, moved=0.0):
+    """The ba512 rows' graph (512 cameras, 4,096 points, seed 0) on the
+    card, with ``near`` as a fifth intrinsic (the benchmark configuration's
+    near plane) and its state moved by ``moved`` (cameras' rotations and
+    translations, points) from a fixed seed: off the start, where the
+    relative-pose residuals are rounding alone."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from toyslam_torch.ops import se3
+    from toyslam_torch.ops.gather_plan import attach_plan
+    from toyslam_torch.sim import synthetic3d
+
+    graph, _, _ = synthetic3d.make_ba_problem(512, 4096, 24, seed=0)
+    graph = attach_plan(graph, want_band=False)
+    if near is not None:
+        graph = dataclasses.replace(graph, intrinsics=torch.cat(
+            [graph.intrinsics, torch.tensor([near])]))
+    rng = np.random.default_rng(7)
+    step = torch.as_tensor(rng.normal(0.0, moved, graph.poses.shape[:1] + (6,)),
+                           dtype=torch.float32)
+    lm = torch.as_tensor(rng.normal(0.0, moved, graph.landmarks.shape),
+                         dtype=torch.float32)
+    graph = graph.with_state(se3.retract(graph.poses, step),
+                             graph.landmarks + lm)
+    return graph.to(device)
+
+
+def edges3d_check(case, graph, start):
+    """The dispatch's blocks (the relative-pose edges with the exact
+    Jacobians and with ``A = -I, B = I``) and chi^2 on the card (two
+    launches each) against the plain version in float64 on the CPU from the
+    same float32 state, the kernel's relative-pose Jacobians against
+    ``jacfwd``'s in float64, and a rerun's bits.  At the ``start`` the
+    relative-pose residuals are float32 rounding alone (the initial
+    cameras integrate them), and so are their gradients ``b_a``, ``b_b`` in
+    either float32 version: reported, not held."""
+    import torch
+
+    from toyslam_torch.ops import edges3d_kernel as k3
+    from toyslam_torch.ops import residuals3d as res3
+    from toyslam_torch.ops import schur3d
+
+    g64 = graph.astype(torch.float64).to("cpu")
+    args = (graph.poses, graph.landmarks, graph.intrinsics, graph.odom,
+            graph.lm_edges, 4.0)
+    args64 = (g64.poses, g64.landmarks, g64.intrinsics, g64.odom,
+              g64.lm_edges, 4.0)
+    before = k3.launches
+    got = schur3d.edge_blocks_3d(*args, exact=True)
+    again = schur3d.edge_blocks_3d(*args, exact=True)
+    fixed = schur3d.edge_blocks_3d(*args, exact=False)[0]
+    blocks_launches = (k3.launches - before) // 3
+    before = k3.launches
+    chi2 = schur3d.total_error_3d(graph, 4.0)
+    chi2_again = schur3d.total_error_3d(graph, 4.0)
+    chi2_launches = (k3.launches - before) // 2
+    ja, jb = k3.odom_jacobians(graph.poses, graph.odom, 4.0)
+    torch.cuda.synchronize()
+    want = schur3d.edge_blocks_3d(*args64, exact=True)
+    want_fixed = schur3d.edge_blocks_3d(*args64, exact=False)[0]
+    od = res3.eval_odom3d_edges(g64.poses, g64.odom.i, g64.odom.j,
+                                g64.odom.meas, g64.odom.info, g64.odom.mask,
+                                4.0, exact=True)
+    chi2_64 = float(schur3d.total_error_3d(g64, 4.0))
+    rel = {}
+    for part, g, w in zip(("odom", "reproj", "odom_fixed"),
+                          got + (fixed,), want + (want_fixed,)):
+        for name, a, b in zip(w._fields, g, w):
+            if name in ("robust_err", "chi2"):
+                continue
+            rel[f"{part}.{name}"] = float((a.cpu().double() - b).abs().max()
+                                          / b.abs().max())
+    jrel = {}
+    for name, a, b in (("JA", ja, od.JA), ("JB", jb, od.JB)):
+        err = (a.cpu().double() - b).abs().flatten(1).max(1).values
+        jrel[name] = float((err / b.abs().flatten(1).max(1).values).max())
+    chi2_rel = abs(float(chi2) - chi2_64) / chi2_64
+    same = (all(torch.equal(a, b) for x, y in zip(got, again)
+                for a, b in zip(x, y))
+            and torch.equal(chi2, chi2_again))
+    r = got[1]
+    n_out = int((r.chi2 > 16.0).sum())
+    tol = EDGES3D_REL_TOL
+    held = {k: v for k, v in rel.items()
+            if not (start and k.partition(".")[2] in ("b_a", "b_b")
+                    and k.startswith("odom"))}
+    ok = (max(held.values()) <= tol["blocks"]
+          and max(jrel.values()) <= tol["jacobians"]
+          and chi2_rel <= tol["chi2"] and same
+          and blocks_launches == chi2_launches == 2)
+    return {"case": case, "blocks_rel": rel, "jacobians_rel": jrel,
+            "chi2_rel": chi2_rel, "huber_outliers": n_out,
+            "launches_per_assembly": blocks_launches,
+            "launches_per_chi2": chi2_launches, "same_bits": same, "ok": ok}
+
+
+def edges3d_bound(graph, blocks):
+    """The least time of one launch of each kernel at ``graph``'s sizes:
+    its inputs read and outputs written once at the HBM rate, or its
+    operations (``EDGES3D_FLOPS``) at the f32 peak."""
+    n, m = graph.num_poses, graph.landmarks.shape[0]
+    e1, e2 = graph.odom.count, graph.lm_edges.count
+    poses = 4 * 12 * n
+    out = {}
+    for kernel, nbytes, flops in (
+        ("odom", poses + e1 * (16 + 4 * (12 + 36 + 1))
+         + 4 * e1 * ((3 * 36 + 2 * 6 + 1) if blocks else 1),
+         e1 * EDGES3D_FLOPS["odom_blocks" if blocks else "odom_residuals"]),
+        ("reproj", poses + 4 * 3 * m + 4 * graph.intrinsics.shape[0]
+         + e2 * (16 + 4 * (2 + 4 + 1))
+         + 4 * e2 * ((36 + 9 + 18 + 6 + 3 + 2) if blocks else 1),
+         e2 * EDGES3D_FLOPS["reproj_blocks" if blocks else
+                            "reproj_residuals"]),
+    ):
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+        out[kernel] = {"bound_ms": max(t_bytes, t_ops) * 1e3,
+                       "bound_by": "bytes" if t_bytes >= t_ops
+                       else "operations", "bytes": nbytes, "flops": flops}
+    return out
+
+
+def edges3d_times(graph, reps=200):
+    """Each kernel's launch alone through its entry point (device ms,
+    queued behind a sleep), the assembly's and the chi^2's pair through
+    the dispatch (host ms a call, and a call and a synchronize), and the
+    plain version's float32 on the card (ms a call and a synchronize), in
+    turns (plain, kernel, kernel, plain)."""
+    from toyslam_torch.ops import edge_blocks3d as eb3
+    from toyslam_torch.ops import edges3d_kernel as k3
+    from toyslam_torch.ops import residuals3d as res3
+    from toyslam_torch.ops import schur3d
+
+    g = graph
+    args = (g.poses, g.landmarks, g.intrinsics, g.odom, g.lm_edges, 4.0)
+    reproj = (g.poses, g.landmarks, g.intrinsics, g.lm_edges, 4.0)
+    launch = {
+        "odom_blocks": lambda: k3.odom_blocks(g.poses, g.odom, 4.0,
+                                              exact=True),
+        "reproj_blocks": lambda: k3.reproj_blocks(*reproj),
+        "odom_residuals": lambda: k3.odom_errors(g.poses, g.odom, 4.0),
+        "reproj_residuals": lambda: k3.reproj_errors(*reproj),
+    }
+
+    def assembly():
+        schur3d.edge_blocks_3d(*args, exact=True)
+
+    def chi2():
+        schur3d.total_error_3d(g, 4.0)
+
+    def plain_assembly():
+        eb3.odom3d_edge_blocks(g.poses, g.odom.i, g.odom.j, g.odom.meas,
+                               g.odom.info, g.odom.mask, 4.0, exact=True)
+        eb3.reproj_edge_blocks(g.poses, g.landmarks, g.intrinsics,
+                               g.lm_edges.pose, g.lm_edges.lm,
+                               g.lm_edges.meas, g.lm_edges.info,
+                               g.lm_edges.mask, 4.0)
+
+    def plain_chi2():
+        (res3.eval_odom3d_edges(g.poses, g.odom.i, g.odom.j, g.odom.meas,
+                                g.odom.info, g.odom.mask, 4.0).robust_err.sum()
+         + res3.eval_reproj_edges(
+             g.poses, g.landmarks, g.intrinsics, g.lm_edges.pose,
+             g.lm_edges.lm, g.lm_edges.meas, g.lm_edges.info,
+             g.lm_edges.mask, 4.0).robust_err.sum())
+
+    out = {"plain_assembly": [host_ms(plain_assembly, 5, True)],
+           "plain_chi2": [host_ms(plain_chi2, 5, True)]}
+    for _ in range(2):
+        for name, fn in launch.items():
+            out.setdefault(name, []).append(queued_ms(fn, reps))
+        for name, fn in (("assembly", assembly), ("chi2", chi2)):
+            out.setdefault(f"{name}_host", []).append(
+                host_ms(fn, reps, False))
+            out.setdefault(f"{name}_wall", []).append(host_ms(fn, reps, True))
+    out["plain_assembly"].append(host_ms(plain_assembly, 5, True))
+    out["plain_chi2"].append(host_ms(plain_chi2, 5, True))
+    return out
+
+
+def phase_edges3d(device, state):
+    """The SE(3) edges' kernels (``ops/edges3d_kernel.py``,
+    ``csrc/edges3d.cu``) at 512 cameras x 4,096 points: held against the
+    plain version in float64 (``EDGES3D_REL_TOL``) at the start and off
+    it, with four intrinsics and with the benchmark configuration's near
+    plane, two launches an assembly and a chi^2, the same bits on a rerun,
+    no spilled register; each launch timed against its bound and the plain
+    version (line ``edges3d``)."""
+    import torch
+
+    from toyslam_torch.ops import edges3d_kernel as k3
+
+    cases = {"ba512_start": edges3d_graph(device),
+             "ba512_moved": edges3d_graph(device, moved=0.02),
+             "ba512_near_start": edges3d_graph(device, near=0.5),
+             "ba512_near_moved": edges3d_graph(device, near=0.5, moved=0.02)}
+    checks = [edges3d_check(case, g, case.endswith("start"))
+              for case, g in cases.items()]
+    for r in checks:
+        log("edges3d_check " + json.dumps(r))
+    g = cases["ba512_near_moved"]
+    attrs = k3.kernel_attrs()
+    out = {"checks": checks, "attrs": attrs,
+           "ms": edges3d_times(g),
+           "bound": {"blocks": edges3d_bound(g, True),
+                     "residuals": edges3d_bound(g, False)},
+           "edges": {"odom": g.odom.count, "reproj": g.lm_edges.count}}
+    torch.cuda.synchronize()
+    log("edges3d " + json.dumps({k: v for k, v in out.items()
+                                 if k != "checks"}))
+    bad = [r["case"] for r in checks if not r["ok"]]
+    spilled = [k for k, a in attrs.items() if a["local_bytes"]]
+    if bad or spilled:
+        raise AssertionError(f"edges3d kernels: checks failed {bad}, "
+                             f"local memory in {spilled}")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4169,6 +4457,8 @@ def main(argv=None) -> int:
             b1_layouts=phase_b1_layouts(device))),
         ("pcr_factor", lambda: state.update(
             pcr=phase_pcr_factor(device, state))),
+        ("edges3d", lambda: state.update(
+            edges3d=phase_edges3d(device, state))),
     ]
     extra = {"incr100k_diag": lambda: phase_incr100k_diag(device)}
     if only is not None:
@@ -4456,7 +4746,39 @@ def main(argv=None) -> int:
               max_abs_err=pk["max_abs"],
               **pcr_timed(pk["layouts"]["main_dp3"]),
               by_layout={k: pcr_timed(v) for k, v in pk["layouts"].items()})
-    log(json.dumps({"kernels": [b1, b2, b3, pf]}))
+    # the SE(3) edges (phase 33): their launches on the BA paths, two an
+    # assembly and two a chi^2; each kernel timed alone at 512 x 4096 with
+    # the benchmark configuration's near plane, the launch of the assembly's
+    # blocks as the headline.  library_ms: no single PyTorch call
+    # evaluates these edges
+    ek = state["edges3d"]
+    e3_paths = {"ba128": state["ba"]["ba128"]["kernel_launches"]["edges3d"],
+                "ba3d_defaults": state["ba"]["ba3d_defaults"][
+                    "kernel_launches_by_kernel"]["edges3d"]}
+    e3_paths.update({case: m["kernel_launches"]["edges3d"]
+                     for case, (m, _, _) in state["ba_scale"].items()})
+
+    def e3_timed(name, kind, blocks):
+        ms = statistics.mean(ek["ms"][name])
+        bound = ek["bound"]["blocks" if blocks else "residuals"][kind]
+        return dict(ms=ms, bound_ms=bound["bound_ms"],
+                    bound_by=bound["bound_by"],
+                    share_of_bound=bound["bound_ms"] / ms, library_ms=None)
+
+    e3 = dict(KERNELS["edges3d"])
+    e3.update(
+        launches=sum(e3_paths.values()), launches_by_path=e3_paths,
+        **e3_timed("odom_blocks", "odom", True),
+        by_launch={name: e3_timed(name, name.split("_")[0],
+                                  name.endswith("blocks"))
+                   for name in ("odom_blocks", "reproj_blocks",
+                                "odom_residuals", "reproj_residuals")},
+        plain_ms={k: statistics.mean(ek["ms"][f"plain_{k}"])
+                  for k in ("assembly", "chi2")},
+        max_rel_err=max(max(r["blocks_rel"].values()) for r in ek["checks"]
+                        if not r["case"].endswith("start")),
+        attrs=ek["attrs"])
+    log(json.dumps({"kernels": [b1, b2, b3, pf, e3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

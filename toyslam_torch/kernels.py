@@ -54,7 +54,7 @@ def _nvcc() -> str:
 
 
 KERNELS = ("fused_pcg_chunk", "band_fused_pcg_chunk", "slab_band_matvec",
-           "pcr_factor")
+           "pcr_factor", "edges3d")
 
 _loaded: dict[str, KernelLibrary] = {}
 

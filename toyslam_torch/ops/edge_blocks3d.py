@@ -1,7 +1,9 @@
-"""Weighted normal-equation blocks of every SE(3) reprojection edge at once:
-the 3D counterpart of ``ops/edge_blocks.py`` (port of
+"""Weighted normal-equation blocks of every SE(3) edge at once: the 3D
+counterpart of ``ops/edge_blocks.py`` (port of
 ``toyslam_tpu.ops.edge_blocks3d`` without its ``backend`` knob, which
-names only the batched formulas there too)."""
+names only the batched formulas there too).  These batched formulas are
+the plain version of the kernels of ``ops/edges3d_kernel.py``, which
+``schur3d.edge_blocks_3d`` takes on the card."""
 
 from __future__ import annotations
 
@@ -11,6 +13,36 @@ import torch
 
 from toyslam_torch.ops import blockmath as bm
 from toyslam_torch.ops import residuals3d as res3
+
+
+class OdomBlocks(NamedTuple):
+    """``w_aa``, ``w_bb``, ``w_ab`` f32[E,6,6] = JA^T W' JA, JB^T W' JB,
+    JA^T W' JB; ``b_a``, ``b_b`` f32[E,6] = JA^T W' r, JB^T W' r, with W' =
+    huber_w * mask * info; ``robust_err`` f32[E] (masked)."""
+
+    w_aa: torch.Tensor
+    w_bb: torch.Tensor
+    w_ab: torch.Tensor
+    b_a: torch.Tensor
+    b_b: torch.Tensor
+    robust_err: torch.Tensor
+
+
+def odom3d_edge_blocks(
+    poses, i, j, meas, info, mask, huber_delta: float, exact: bool = False,
+) -> OdomBlocks:
+    od = res3.eval_odom3d_edges(poses, i, j, meas, info, mask, huber_delta,
+                                exact=exact)
+    w_od = od.w[:, None, None] * info                # [E, 6, 6]
+    wr = bm.mv(w_od, od.r)
+    return OdomBlocks(
+        w_aa=bm.quad(od.JA, w_od),
+        w_bb=bm.quad(od.JB, w_od),
+        w_ab=bm.mtm(od.JA, bm.mm(w_od, od.JB)),
+        b_a=bm.mtv(od.JA, wr),
+        b_b=bm.mtv(od.JB, wr),
+        robust_err=od.robust_err,
+    )
 
 
 class ReprojBlocks(NamedTuple):

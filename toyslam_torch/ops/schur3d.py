@@ -9,10 +9,15 @@ sizes off the arrays, so the SE(2) solve machinery runs unchanged on the
 6/3 systems built here, with the kernels instantiated at dp=6.
 
 Port of ``toyslam_tpu.ops.schur3d``.  The per-vertex sums go through the
-graph's gather tables, as ``schur.assemble_blocks`` does.  Spans: the
-solve's assembly is ``toyslam.ops.assemble``, and the edges' residuals and
-Jacobians inside it, and the residuals of :func:`total_error_3d` (the step
-rejection's chi^2), are ``toyslam.ops.edges3d``.  Where the gate
+graph's gather tables, as ``schur.assemble_blocks`` does.  The per-edge
+work (residuals, Jacobians, Huber weights, the edges' blocks) is two
+launches of the kernels of ``ops/edges3d_kernel.py`` on the card (float32
+alone: they raise for float64), an assembly or a chi^2, and the batched
+formulas of ``ops/residuals3d.py`` and ``ops/edge_blocks3d.py`` on the CPU
+(:func:`edge_blocks_3d`, :func:`edge_errors_3d`).  Spans: the solve's assembly is
+``toyslam.ops.assemble``, and the edges inside it, and those of
+:func:`total_error_3d` (the step rejection's chi^2), are
+``toyslam.ops.edges3d``.  Where the gate
 declines the kernels (``pcg_backend="xla"``, loop closures in an SE(3)
 graph, layouts past the budgets) the solve takes the plain PCG loop of
 ``schur.schur_solve`` at dp=6, dl=3, as the reference does.  The
@@ -29,13 +34,50 @@ import torch
 from toyslam_torch import tracing
 from toyslam_torch.config import OptimizerConfig
 from toyslam_torch.models.graph3d import FactorGraph3D
-from toyslam_torch.ops import blockmath as bm
 from toyslam_torch.ops import edge_blocks3d as eb3
+from toyslam_torch.ops import edges3d_kernel as k3
 from toyslam_torch.ops import gather_plan as gp
 from toyslam_torch.ops import residuals3d as res3
 from toyslam_torch.ops import schur
 from toyslam_torch.ops.collective import all_reduce
 from toyslam_torch.ops.schur import BlockSystem, _plan
+
+
+def edge_blocks_3d(poses, landmarks, intrinsics, odom, lm_edges,
+                   huber_delta: float, exact: bool = False):
+    """``(OdomBlocks, ReprojBlocks)`` of every SE(3) edge
+    (``ops/edge_blocks3d.py``): on the card two launches of the kernels of
+    ``ops/edges3d_kernel.py`` (which take float32 alone and raise for
+    another dtype), on the CPU the plain version's batched formulas."""
+    if poses.is_cuda:
+        return k3.edge_blocks(poses, landmarks, intrinsics, odom, lm_edges,
+                              huber_delta, exact=exact)
+    return (
+        eb3.odom3d_edge_blocks(poses, odom.i, odom.j, odom.meas, odom.info,
+                               odom.mask, huber_delta, exact=exact),
+        eb3.reproj_edge_blocks(poses, landmarks, intrinsics, lm_edges.pose,
+                               lm_edges.lm, lm_edges.meas, lm_edges.info,
+                               lm_edges.mask, huber_delta),
+    )
+
+
+def edge_errors_3d(poses, landmarks, intrinsics, odom, lm_edges,
+                   huber_delta: float):
+    """The per-edge robust chi^2 (masked) of every relative-pose and every
+    reprojection edge, ``([E1], [E2])``, without Jacobians (the odometry
+    takes ``exact=False``): on the card two launches of the kernels of
+    ``ops/edges3d_kernel.py``, on the CPU the plain version's formulas."""
+    if poses.is_cuda:
+        return k3.edge_errors(poses, landmarks, intrinsics, odom, lm_edges,
+                              huber_delta)
+    return (
+        res3.eval_odom3d_edges(poses, odom.i, odom.j, odom.meas, odom.info,
+                               odom.mask, huber_delta, exact=False
+                               ).robust_err,
+        res3.eval_reproj_edges(poses, landmarks, intrinsics, lm_edges.pose,
+                               lm_edges.lm, lm_edges.meas, lm_edges.info,
+                               lm_edges.mask, huber_delta).robust_err,
+    )
 
 
 def assemble_blocks_3d(
@@ -52,25 +94,14 @@ def assemble_blocks_3d(
     t_oi, t_oj = plan.odom_by_i, plan.odom_by_j
     t_lp, t_ll = plan.lm_by_pose, plan.lm_by_lm
     with tracing.span("toyslam.ops.edges3d"):
-        od = res3.eval_odom3d_edges(
-            graph.poses, graph.odom.i, graph.odom.j, graph.odom.meas,
-            graph.odom.info, graph.odom.mask, huber_delta,
-            exact=exact_odom_jacobians,
-        )
-        rb = eb3.reproj_edge_blocks(
-            graph.poses, graph.landmarks, graph.intrinsics,
-            graph.lm_edges.pose, graph.lm_edges.lm, graph.lm_edges.meas,
-            graph.lm_edges.info, graph.lm_edges.mask, huber_delta,
-        )
+        ob, rb = edge_blocks_3d(
+            graph.poses, graph.landmarks, graph.intrinsics, graph.odom,
+            graph.lm_edges, huber_delta, exact=exact_odom_jacobians)
 
     # relative-pose contributions
-    w_od = od.w[:, None, None] * graph.odom.info        # [E1, 6, 6]
-    wr = bm.mv(w_od, od.r)
-    bp = (gp.table_sum(bm.mtv(od.JA, wr), t_oi)
-          + gp.table_sum(bm.mtv(od.JB, wr), t_oj))
-    hpp_diag = (gp.table_sum(bm.quad(od.JA, w_od), t_oi)
-                + gp.table_sum(bm.quad(od.JB, w_od), t_oj))
-    hpp_off = bm.mtm(od.JA, bm.mm(w_od, od.JB))
+    bp = gp.table_sum(ob.b_a, t_oi) + gp.table_sum(ob.b_b, t_oj)
+    hpp_diag = gp.table_sum(ob.w_aa, t_oi) + gp.table_sum(ob.w_bb, t_oj)
+    hpp_off = ob.w_ab
 
     # reprojection contributions
     hpp_diag = hpp_diag + gp.table_sum(rb.w_ata, t_lp)
@@ -79,7 +110,7 @@ def assemble_blocks_3d(
     bl = gp.table_sum(rb.bl_c, t_ll)
     hpp_diag, hll, bp, bl, err = all_reduce(
         group, hpp_diag, hll, bp, bl,
-        od.robust_err.sum() + rb.robust_err.sum())
+        ob.robust_err.sum() + rb.robust_err.sum())
 
     # gauge priors + padding regularization
     eye6 = torch.eye(6, dtype=hpp_diag.dtype, device=hpp_diag.device)
@@ -106,16 +137,10 @@ def total_error_3d(
     Jacobians are not needed, so the odometry residuals skip them whatever
     ``exact_odom_jacobians`` says, as in the reference."""
     with tracing.span("toyslam.ops.edges3d"):
-        od = res3.eval_odom3d_edges(
-            graph.poses, graph.odom.i, graph.odom.j, graph.odom.meas,
-            graph.odom.info, graph.odom.mask, huber_delta, exact=False,
-        )
-        rp = res3.eval_reproj_edges(
-            graph.poses, graph.landmarks, graph.intrinsics,
-            graph.lm_edges.pose, graph.lm_edges.lm, graph.lm_edges.meas,
-            graph.lm_edges.info, graph.lm_edges.mask, huber_delta,
-        )
-    return od.robust_err.sum() + rp.robust_err.sum()
+        od_err, rp_err = edge_errors_3d(
+            graph.poses, graph.landmarks, graph.intrinsics, graph.odom,
+            graph.lm_edges, huber_delta)
+    return od_err.sum() + rp_err.sum()
 
 
 def schur3d_linearize_solve(cfg: OptimizerConfig, group=None):

@@ -421,15 +421,13 @@ def _linearize_local(g, cfg: OptimizerConfig, x_ext, l_ext):
     e = _ext_graph(g, x_ext, l_ext)
     od_, lm_ = e.odom, e.lm_edges
     if _is_3d(g):
-        from toyslam_torch.ops import edge_blocks3d as eb3
-        from toyslam_torch.ops import residuals3d as res3
+        from toyslam_torch.ops.schur3d import edge_blocks_3d
 
-        od = res3.eval_odom3d_edges(
-            x_ext, od_.i, od_.j, od_.meas, od_.info, od_.mask,
-            cfg.huber_delta, exact=cfg.exact_odom_jacobians)
-        lb = eb3.reproj_edge_blocks(
-            x_ext, l_ext, g.intrinsics, lm_.pose, lm_.lm, lm_.meas,
-            lm_.info, lm_.mask, cfg.huber_delta)
+        ob, lb = edge_blocks_3d(x_ext, l_ext, g.intrinsics, od_, lm_,
+                                cfg.huber_delta,
+                                exact=cfg.exact_odom_jacobians)
+        return (ob.w_aa, ob.w_bb, ob.w_ab, ob.b_a, ob.b_b,
+                ob.robust_err.sum(), lb)
     else:
         from toyslam_torch.ops import edge_blocks
         from toyslam_torch.ops import residuals as res_ops
